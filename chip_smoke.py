@@ -5,28 +5,55 @@
 
 Phases, one line each; any failure propagates and exits non-zero:
   1. device: name, count, `nvidia-smi` name and power limit;
-  2. build: nvcc of monogs_torch/csrc/composite.cu (sm_90a) and its
-     -Xptxas -v report;
+  2. build: nvcc of monogs_torch/csrc/composite.cu and microbench.cu
+     (sm_90a, one nvcc each, started together) and their -Xptxas -v
+     reports;
   3. kernels against their plain PyTorch twins on the card, at the
      bench.py widths (640x480, 100k Gaussians, tile 32, K 2048,
      entry_capacity 210432) and at n_img=2 on a small slab;
-  4. the main path: 3 frames rendered at known poses through `render`,
+  4. the tracking path: 3 frames rendered at known poses through `render`,
      each tracked with `track_frame` from a perturbed start; the pose error
      must shrink and every kernel must have launched on that path;
-  5. timing: ms per tracking iteration (100 forced iterations, median of 7),
-     a torch.profiler breakdown of 16 iterations (device busy time, idle
-     share, launches and the top kernels per iteration; the profiler's own
-     host cost inflates the idle share), and each kernel's time at its real
-     shapes (CUDA events over a CUDA graph of 20 launches, and eagerly),
-     beside its plain twin, the library call where one exists and its
-     bound;
-then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
+  5. tracking timing: ms per tracking iteration (100 forced iterations,
+     median of 5), a torch.profiler breakdown of 16 iterations (device busy
+     time, idle share, launches and the top kernels per iteration; the
+     profiler's own host cost inflates the idle share), and each kernel's
+     time at the tracking shapes;
+  6. kernels at the mapping widths (scripts/bench_mapping.py: 640x480,
+     fx 520.9 / fy 521.0, window 8, map capacity 131,072 with 80,000 live,
+     tile 32, K 1024, entry_capacity 210432, its map distributions with
+     opacity logits N(0, 1); the 8 keyframes are rendered from a
+     numpy-seeded map at bench_mapping's poses, where bench_mapping uses
+     random images): both slab kernels at n_img 8 against their twins, the
+     batched relayout at (8, 131072, 16), and the roofline probe kernel for
+     each op against its twin;
+  7. the mapping path, from a map like phase 6's but with opacity logits
+     N(2.5, 1) (PATH_OPACITY_SHIFT: the densify event prunes opacity below
+     0.7, 80% of an N(0, 1) map): a MapperState starts from a perturbed
+     copy of the map; `extend_event` on keyframe 0,
+     `run_optimize_map(iters=100)` from iteration 0 (the densify event at
+     50 fires), `visibility_pass` and `covisibility_prune`. The window loss
+     must fall, everything stay finite, the active count change, and every
+     kernel launch on the path;
+  8. mapping timing on phase 6's state: the host syncs of one 8-iteration
+     span, ms per mapping iteration (median of 5 spans of 8), a profiler
+     breakdown of one span, the live pairs under both opacity
+     distributions, each kernel's time at the mapping shapes beside its
+     twin, the library call and its bound, the probe's ns per step for fma
+     / exp / log1p / div (the roofline probe's main path) and the slab
+     kernels' measured-rate floors at both widths;
+then the kernels' JSON line (each row's `launches` is the sum of the
+per-path counts beside it; its times, bound and error are at the mapping
+shapes, or the probe's) and, last, {"ok": true, "device": {...}}.
 
 Tolerances (kernel vs plain twin on the same inputs): forward rgb / alpha
 1e-5 and depth 1e-4 absolute (the JAX suite's Pallas-vs-oracle bounds);
 touched and the relayout bit-exact; backward per feature channel
 max|kernel - plain| <= 1e-4 * max|plain| (only the order of the per-slot
-sums over the tile's pixels differs).
+sums over the tile's pixels differs); the probe max|kernel - plain| <=
+1e-5 * max|plain| at n_rep 16 (a chain of expf / log1pf may round apart
+from torch.exp / torch.log1p by an ulp a step; the chains do not amplify
+it).
 """
 
 from __future__ import annotations
@@ -34,10 +61,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 H100_FP32_OPS = 67e12    # float32 outside the tensor cores, op/s
 H100_HBM_BYTES = 3.35e12  # B/s
@@ -53,6 +83,14 @@ BWD_OPS_PER_PAIR = 63
 
 W, H, N = 640, 480, 100_000
 SEED = 0
+# The mapping workload: scripts/bench_mapping.py's widths.
+MW, MH, M_CAP, M_LIVE, WIN, M_ECAP = 640, 480, 131_072, 80_000, 8, 210_432
+M_ITERS = 100
+# The event path's ground-truth opacity logits are N(PATH_OPACITY_SHIFT, 1):
+# the densify event prunes every Gaussian below gaussian_th = 0.7 (logit
+# 0.847), which is 80% of an N(0, 1) map and 5% of this one.
+PATH_OPACITY_SHIFT = 2.5
+PROBE_CHECK_REP = 16
 
 
 def require(cond: bool, what: str):
@@ -62,51 +100,6 @@ def require(cond: bool, what: str):
 
 def line(tag: str, **kv):
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
-
-
-def make_map(n: int, seed: int, device) -> dict:
-    """bench.py's random map, drawn with numpy from a seed."""
-    import numpy as np
-    import torch
-
-    rng = np.random.default_rng(seed)
-    params = {
-        "xyz": np.concatenate([rng.uniform(-2.0, 2.0, (n, 2)),
-                               rng.uniform(0.8, 5.0, (n, 1))], axis=1),
-        "log_scales": rng.uniform(-5.5, -4.0, (n, 3)),
-        "quats": rng.normal(size=(n, 4)) + np.array([2.0, 0, 0, 0]),
-        "opacity_logit": rng.normal(size=(n,)),
-        "rgb": rng.uniform(size=(n, 3)),
-    }
-    return {k: torch.as_tensor(v, dtype=torch.float32, device=device)
-            for k, v in params.items()}
-
-
-def slab_inputs(params, intr, cfg, R, t):
-    """Projected channels, bins and the (1, 16, E_cap) slab at pose (R, t)."""
-    import torch
-    from monogs_torch.models.gaussian_map import get_opacity, get_scales
-    from monogs_torch.ops.binning import tile_bin
-    from monogs_torch.ops.projection import project_gaussians_ch
-    from monogs_torch.ops.tile_raster import pack_features_slab
-
-    z3 = torch.zeros(3, device=R.device)
-    with torch.no_grad():
-        p = project_gaussians_ch(params["xyz"], get_scales(params, False),
-                                 params["quats"], get_opacity(params), R, t,
-                                 z3, z3, intr)
-        opa = torch.where(p.valid, p.opacity, torch.zeros_like(p.opacity))
-        bins = tile_bin(None, p.radius, p.depth, p.valid, img_w=intr.width,
-                        img_h=intr.height, tile_size=cfg.tile_size,
-                        tile_capacity=cfg.tile_capacity, max_dup=cfg.max_dup,
-                        entry_capacity=cfg.entry_capacity, opacity=opa,
-                        conic=(p.ca, p.cb, p.cc), uv=(p.u, p.v),
-                        max_dup_gen=cfg.max_dup_gen, cull_alpha=cfg.cull_alpha)
-        feats = pack_features_slab(p.u, p.v, p.ca, p.cb, p.cc, opa,
-                                   params["rgb"], p.depth, bins.gauss_of_pos,
-                                   bins.gsort_pos, bins.gseg_start,
-                                   bins.g_last, cfg.max_dup)
-    return p, bins, feats[None].contiguous()
 
 
 def fwd_err(a, b) -> tuple[float, bool]:
@@ -123,23 +116,6 @@ def bwd_err(a, b) -> tuple[float, bool]:
     d = (a - b).abs().amax(dim=(0, 2))
     scale = b.abs().amax(dim=(0, 2))
     return float(d.max()), bool((d <= 1e-4 * scale).all())
-
-
-def live_pairs(feats_cm, bins, rcfg) -> int:
-    """(pixel, slot) pairs the kernels evaluate on these bins: the chunks
-    each tile walks before its every pixel saturates, times 128 x P."""
-    import torch
-    from monogs_torch.ops.tile_raster import CHUNK, _SlabWalk
-
-    walk = _SlabWalk(feats_cm, bins.pstart_blk, bins.counts, rcfg)
-    logT = torch.zeros((walk.Tt, rcfg.pixels), device=feats_cm.device)
-    n = 0
-    for j in range(walk.n_steps):
-        live, _, _, terms = walk.chunk(j, logT)
-        n += int(live.sum())
-        logT = torch.where(live[:, None],
-                           logT + torch.log1p(-terms[-1]).sum(-1), logT)
-    return n * CHUNK * rcfg.pixels
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2, graph: bool = False) -> float:
@@ -207,6 +183,331 @@ def device_profile(fn, iters: int, top: int = 8) -> dict:
     }
 
 
+def time_kernel(kfn, pfn, lfn, ops: float, nbytes: float, plain_reps: int = 2) -> dict:
+    """A kernel's device time (CUDA-graph replay of 20 launches) beside its
+    plain twin's, the library call's where there is one, and its bound:
+    the larger of ops at the float32 peak and bytes at the HBM rate."""
+    bound_ops, bound_bytes = ops / H100_FP32_OPS * 1e3, nbytes / H100_HBM_BYTES * 1e3
+    return {"ms": cuda_ms(kfn, 20, graph=True),
+            "plain_ms": cuda_ms(pfn, plain_reps, warmup=1),
+            "library_ms": cuda_ms(lfn, 20, graph=True) if lfn else None,
+            "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes"}
+
+
+def build_mapping_state(dev, opacity_shift: float = 0.0):
+    """The mapping path's inputs: a ground-truth map of M_LIVE Gaussians
+    drawn with numpy from SEED with scripts/bench_mapping.py's distributions
+    (opacity logits N(0, 1), plus `opacity_shift`), WIN keyframes rendered
+    from it at
+    bench_mapping's poses and intrinsics (bench_mapping's frames are random
+    images instead), and a MapperState of capacity M_CAP whose first M_LIVE
+    rows are a perturbed copy of that map (rgb noise 0.15, opacity-logit
+    noise 0.3). -> (state, intr, cfg)."""
+    import numpy as np
+    import torch
+    from monogs_torch.models.optim import init_adam
+    from monogs_torch.ops.graphics import Intrinsics
+    from monogs_torch.ops.render import render
+    from monogs_torch.slam.camera import make_frame, window_from_list
+    from monogs_torch.slam.mapper import MapperConfig, init_mapper_state
+    from monogs_torch.tools.roofline import bench_map
+
+    intr = Intrinsics(fx=520.9, fy=521.0, cx=MW / 2, cy=MH / 2, width=MW, height=MH)
+    cfg = MapperConfig(entry_capacity=M_ECAP)
+    gt = bench_map(M_LIVE, SEED + 2, dev)
+    gt["opacity_logit"] = gt["opacity_logit"] + opacity_shift
+    frames = []
+    with torch.no_grad():
+        for i in range(WIN):
+            pose = torch.eye(4, device=dev)
+            pose[:3, 3] = torch.tensor([0.02 * i, -0.01 * i, 0.03 * i], device=dev)
+            out = render(gt["xyz"], torch.exp(gt["log_scales"]), gt["quats"],
+                         torch.sigmoid(gt["opacity_logit"]), gt["rgb"], pose[:3, :3],
+                         pose[:3, 3], intr, tile_size=cfg.tile_size,
+                         tile_capacity=cfg.tile_capacity, max_dup=cfg.max_dup,
+                         max_dup_gen=cfg.max_dup_gen, entry_capacity=M_ECAP,
+                         with_n_touched=False)
+            frames.append(make_frame(i, out.rgb, out.depth, pose, device=dev))
+    state = init_mapper_state(M_CAP, 1, window_from_list(frames, WIN), seed=SEED)
+    rng = np.random.default_rng(SEED + 3)
+    noisy = dict(gt)
+    noisy["rgb"] = torch.clamp(gt["rgb"] + torch.as_tensor(
+        rng.normal(0.0, 0.15, (M_LIVE, 3)), dtype=torch.float32, device=dev), 0.0, 1.0)
+    noisy["opacity_logit"] = gt["opacity_logit"] + torch.as_tensor(
+        rng.normal(0.0, 0.3, M_LIVE), dtype=torch.float32, device=dev)
+    params = {k: v.clone() for k, v in state.gmap.params.items()}
+    for k in params:
+        params[k][:M_LIVE] = noisy[k]
+    active = torch.arange(M_CAP, device=dev) < M_LIVE
+    gmap = state.gmap._replace(params=params, active=active)
+    return state._replace(gmap=gmap, adam=init_adam(params)), intr, cfg
+
+
+def window_slab(state, intr, cfg):
+    """The window's bins and its (WIN, 16, E_cap) slab, with the global
+    block starts and counts of all WIN * tiles tiles, as a mapping
+    iteration's forward builds them. -> (bins, feats, pstart, counts)."""
+    import torch
+    from monogs_torch.ops import tile_raster
+    from monogs_torch.ops.binning import SLAB
+    from monogs_torch.ops.render import project_window
+    from monogs_torch.slam import mapper as tm
+
+    with torch.no_grad():
+        bins = tm.window_bins(state, intr, cfg)
+        g, f = state.gmap, state.window.frames
+        z = torch.zeros_like(f.t)
+        p = project_window(g.params["xyz"], torch.exp(g.params["log_scales"]),
+                           g.params["quats"], torch.sigmoid(g.params["opacity_logit"]),
+                           f.R, f.t, z, z, intr, active=g.active)
+        opa = torch.where(p.valid, p.opacity, torch.zeros_like(p.opacity))
+        rgb = g.params["rgb"]
+        feats = tile_raster.pack_features_window(
+            p.u, p.v, p.ca, p.cb, p.cc, opa, p.depth, rgb[:, 0], rgb[:, 1], rgb[:, 2],
+            bins.gauss_of_pos, bins.gsort_pos, bins.gseg_start, bins.g_last, cfg.max_dup)
+    img = torch.arange(WIN, dtype=torch.int32, device=feats.device)[:, None]
+    pstart = (bins.pstart_blk + img * (feats.shape[2] // SLAB)).reshape(-1).contiguous()
+    return bins, feats, pstart, bins.counts.reshape(-1).contiguous()
+
+
+def window_pairs(feats, pstart, counts, rcfg) -> int:
+    """Live (pixel, slot) pairs of a window slab (roofline.slab_pairs per
+    keyframe)."""
+    from monogs_torch.tools import roofline
+
+    T = rcfg.num_tiles
+    return sum(roofline.slab_pairs(feats, pstart[w * T:(w + 1) * T],
+                                   counts[w * T:(w + 1) * T], rcfg)["live"]
+               for w in range(WIN))
+
+
+def mapping_phases(dev, smi: str, track_launches: dict, track_slab) -> list:
+    """Phases 6-8 (see the module docstring); -> the kernels' JSON rows."""
+    import torch
+    from monogs_torch.ops import kernels, tile_raster
+    from monogs_torch.ops.render import make_raster_config
+    from monogs_torch.slam import mapper as tm
+    from monogs_torch.slam.camera import window_get
+    from monogs_torch.tools import roofline
+
+    # The timed workload (phases 6 and 8) has bench_mapping's distributions;
+    # the event path (phase 7) starts from the opacity-shifted map.
+    t0 = time.perf_counter()
+    state_t, intr, cfg = build_mapping_state(dev)
+    state0, _, _ = build_mapping_state(dev, PATH_OPACITY_SHIFT)
+    rcfg = make_raster_config(MW, MH, cfg.tile_size)
+    K = cfg.tile_capacity
+    line("mapping", built_s=f"{time.perf_counter() - t0:.1f}", capacity=M_CAP,
+         live=M_LIVE, window=WIN, tiles_per_image=rcfg.num_tiles)
+
+    # 6. Kernels at the mapping widths against their twins.
+    bins, feats, pstart, counts = window_slab(state_t, intr, cfg)
+    args = (feats, pstart, counts, rcfg)
+    T = rcfg.num_tiles
+
+    def fwd_plain(touched):
+        outs = [tile_raster._fwd_slab_plain(feats, pstart[w * T:(w + 1) * T],
+                                            counts[w * T:(w + 1) * T], rcfg, K, touched)
+                for w in range(WIN)]
+        return torch.cat([o for o, _ in outs]), torch.cat([t for _, t in outs])
+
+    def bwd_plain(baux):
+        return sum(tile_raster._bwd_slab_plain(feats, pstart[w * T:(w + 1) * T],
+                                               counts[w * T:(w + 1) * T],
+                                               baux[w * T:(w + 1) * T], rcfg)
+                   for w in range(WIN))
+
+    out_k, _ = kernels.slab_fwd(*args, K, False)
+    out_kt, touched_k = kernels.slab_fwd(*args, K, True)
+    out_p, touched_p = fwd_plain(True)
+    torch.cuda.synchronize()
+    err_fwd, ok1 = fwd_err(out_k, out_p)
+    err_fwdt, ok2 = fwd_err(out_kt, out_p)
+    touched_exact = bool(torch.equal(touched_k, touched_p))
+    line("check", kernel="slab_fwd", shape="mapping", n_img=WIN, tiles=pstart.numel(),
+         max_abs_err=err_fwd, max_abs_err_touched_variant=err_fwdt,
+         touched_bit_exact=touched_exact, entries=int(counts.sum()),
+         overflow=int(bins.overflow.sum()))
+    require(ok1 and ok2 and touched_exact, "slab_fwd disagrees with its twin at n_img 8")
+    g_out = torch.randn(out_p.shape, generator=torch.Generator(dev).manual_seed(5),
+                        device=dev)
+    baux = tile_raster.bwd_aux(out_p, g_out)
+    d_k = kernels.slab_bwd(*args[:3], baux, rcfg)
+    d_p = bwd_plain(baux)
+    torch.cuda.synchronize()
+    err_bwd, ok = bwd_err(d_k, d_p)
+    line("check", kernel="slab_bwd", shape="mapping", n_img=WIN, max_abs_err=err_bwd,
+         max_abs_plain=float(d_p.abs().max()))
+    require(ok, "slab_bwd disagrees with its twin at n_img 8")
+    xw = torch.randn((WIN, M_CAP, 16), generator=torch.Generator(dev).manual_seed(6),
+                     device=dev)
+    relayout_exact = bool(torch.equal(kernels.rows_to_channels(xw),
+                                      tile_raster._rows_to_channels_plain(xw)))
+    line("check", kernel="rows_to_channels", shape=tuple(xw.shape),
+         bit_exact=relayout_exact)
+    require(relayout_exact, "batched rows_to_channels disagrees with its twin")
+    xp = roofline.probe_input(device=dev)
+    probe_err = {}
+    for op in roofline.OPS:
+        k = kernels.op_microbench(xp, op, PROBE_CHECK_REP, roofline.PROBE_LANES)
+        pl_ = roofline.op_chain_plain(xp, op, PROBE_CHECK_REP, roofline.PROBE_LANES)
+        torch.cuda.synchronize()
+        probe_err[op] = float((k - pl_).abs().max())
+        line("check", kernel="op_microbench", op=op, shape=tuple(xp.shape),
+             n_rep=PROBE_CHECK_REP, max_abs_err=probe_err[op],
+             bit_exact=bool(torch.equal(k, pl_)))
+        require(probe_err[op] <= 1e-5 * float(pl_.abs().max()),
+                f"op_microbench({op}) disagrees with its twin")
+
+    # 7. The mapping path.
+    _, aux0 = tm.mapping_step(state0, intr, cfg)
+    loss0 = float(aux0.loss)
+    n0 = int(state0.gmap.num_active)
+    path = (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels)
+    for k in path:
+        k.launches = 0
+    t0 = time.perf_counter()
+    state, (n_added, n_dropped) = tm.extend_event(
+        state0, window_get(state0.window, 0), WIN, intr, cfg, init=False)
+    n1 = int(state.gmap.num_active)
+    state, _ = tm.run_optimize_map(state, intr, cfg, M_ITERS)
+    n2 = int(state.gmap.num_active)
+    vis = tm.visibility_pass(state, intr, cfg)
+    state, pruned = tm.covisibility_prune(state, vis, WIN - 2, cfg)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    map_launches = {k.__name__: k.launches for k in path}
+    n3 = int(state.gmap.num_active)
+    _, aux1 = tm.mapping_step(state, intr, cfg)
+    loss1 = float(aux1.loss)
+    finite = all(bool(torch.isfinite(v).all()) for v in state.gmap.params.values()) and \
+        bool(torch.isfinite(state.window.frames.R).all())
+    line("mapping", iters=M_ITERS, s=f"{path_s:.2f}", loss=f"{loss0:.6f}->{loss1:.6f}",
+         active=f"{n0}->{n1}(extend,+{int(n_added)},dropped {int(n_dropped)})->{n2}"
+                f"(densify@50)->{n3}(coviz prune {int(pruned.sum())})",
+         finite=finite, nr_iters=int(state.nr_iters))
+    line("launches", path="mapping", iterations=M_ITERS, **map_launches)
+    require(finite and math.isfinite(loss1), "non-finite mapping output")
+    require(loss1 < loss0, "the window loss did not fall")
+    require(n2 != n1, "the active count did not change at densify")
+    require(map_launches["slab_fwd"] >= M_ITERS + 2
+            and map_launches["slab_bwd"] >= M_ITERS
+            and map_launches["rows_to_channels"] >= M_ITERS,
+            "a kernel of the mapping path did not launch on it")
+
+    # 8. Mapping timing, on phase 6's state: first the host syncs of one
+    # span (the "synchronizing CUDA operation" warnings only; the debug
+    # mode's own one-time notice is not a sync).
+    span_cfg = dataclasses.replace(cfg, converged_eps=0.0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            st, _ = tm.mapping_span(state_t, intr, span_cfg, False, 0, cfg.rebin_every)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = {}
+    for w in caught:
+        if "called a synchronizing CUDA operation" in str(w.message):
+            at = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            where[at] = where.get(at, 0) + 1
+    line("syncs", span_iters=cfg.rebin_every, host_syncs=sum(where.values()),
+         at=repr(where))
+    reps = []
+    for k in path:
+        k.launches = 0
+    for _ in range(5):
+        t0 = time.perf_counter()
+        st, aux = tm.mapping_span(st, intr, span_cfg, False, 0, cfg.rebin_every)
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) / cfg.rebin_every * 1e3)
+    per_iter = {k.__name__: k.launches / (5 * cfg.rebin_every) for k in path}
+    line("timing", mapping_ms_per_iter=statistics.median(reps), min=min(reps),
+         max=max(reps), spans=5, iters_per_span=cfg.rebin_every, card=repr(smi))
+    prof = device_profile(lambda: tm.mapping_span(st, intr, span_cfg, False, 0,
+                                                  cfg.rebin_every), cfg.rebin_every)
+    if prof is None:
+        line("profile", path="mapping", device_busy="not measured (the profiler saw "
+             "no device activity)")
+    else:
+        line("profile", path="mapping", iters=cfg.rebin_every,
+             **{k: v for k, v in prof.items() if k != "top"},
+             idle_share=1.0 - prof["device_busy_ms_per_iter"] / prof["wall_ms_per_iter"],
+             card=repr(smi))
+        for op, op_ms, calls in prof["top"]:
+            print(f"  device: {op_ms:.4f} ms/iter  {calls:7.2f} calls/iter  {op}")
+
+    pairs = window_pairs(feats, pstart, counts, rcfg)
+    pairs_path = window_pairs(*window_slab(state0, intr, cfg)[1:], rcfg)
+    line("pairs", shape="mapping", live_pairs_timed=pairs, opacity_logits_timed="N(0,1)",
+         live_pairs_event_path=pairs_path,
+         opacity_logits_event_path=f"N({PATH_OPACITY_SHIFT},1)")
+    feat_bytes = 10 * 4 * pairs // rcfg.pixels
+    rows = {
+        "slab_fwd": ("cuda", "monogs_torch/csrc/composite.cu",
+                     "monogs_tpu/ops/tile_raster.py:284 (_slab_fwd_kernel, via _fwd_slab :467)",
+                     lambda: kernels.slab_fwd(*args, K, False), lambda: fwd_plain(False),
+                     None, FWD_OPS_PER_PAIR * pairs, feat_bytes + out_p.numel() * 4,
+                     err_fwd),
+        "slab_bwd": ("cuda", "monogs_torch/csrc/composite.cu",
+                     "monogs_tpu/ops/tile_raster.py:355 (_slab_bwd_kernel, via _bwd_slab :517)",
+                     lambda: kernels.slab_bwd(*args[:3], baux, rcfg), lambda: bwd_plain(baux),
+                     None, BWD_OPS_PER_PAIR * pairs, 2 * feat_bytes + baux.numel() * 4,
+                     err_bwd),
+        "rows_to_channels": ("triton", "monogs_torch/csrc/relayout.py",
+                             "monogs_tpu/ops/tile_raster.py:622 (rows_to_channels / "
+                             "_relayout_kernel :618, vmapped in _pfw_bwd :792)",
+                             lambda: kernels.rows_to_channels(xw),
+                             lambda: tile_raster._rows_to_channels_plain(xw),
+                             lambda: xw.transpose(1, 2).contiguous(), 0,
+                             2 * xw.numel() * 4, 0.0),
+    }
+    report = []
+    for kname, (route, source, replaces, kfn, pfn, lfn, ops, nbytes, err) in rows.items():
+        t = time_kernel(kfn, pfn, lfn, ops, nbytes)
+        report.append({"name": kname, "route": route, "source": source,
+                       "replaces": replaces,
+                       "launches": track_launches[kname] + map_launches[kname],
+                       "launches_tracking": track_launches[kname],
+                       "launches_mapping": map_launches[kname],
+                       "shape": "mapping", "max_abs_err": err, **t})
+        line("kernel", shape="mapping", name=kname, **t,
+             launches_per_mapping_iter=per_iter[kname], card=repr(smi))
+    line("kernel", shape="mapping", name="slab_fwd(touched)",
+         ms=cuda_ms(lambda: kernels.slab_fwd(*args, K, True), 20, graph=True),
+         live_pairs=pairs)
+
+    # The roofline probe's main path: the four rates at the probe shape.
+    kernels.op_microbench.launches = 0
+    rates = {op: roofline.op_microbench(op) for op in roofline.OPS}
+    probe_launches = kernels.op_microbench.launches
+    line("roofline", **{f"{op}_ns_per_step": v for op, v in rates.items()},
+         shape=roofline.PROBE_SHAPE, n_rep=roofline.PROBE_REP,
+         lanes=roofline.PROBE_LANES, launches=probe_launches, card=repr(smi))
+    require(probe_launches == 4 * len(roofline.OPS), "the probe kernel did not launch")
+    tf, tb, tr = track_slab
+    t_pairs = roofline.slab_pairs(tf, tb.pstart_blk, tb.counts, tr)["live"]
+    for shape, n in (("tracking", t_pairs), ("mapping", pairs)):
+        line("floor", shape=shape, live_pairs=n, **roofline.floors_ms(n, rates),
+             card=repr(smi))
+    steps = xp.numel() * roofline.PROBE_REP * roofline.PROBE_LANES
+    t = time_kernel(lambda: kernels.op_microbench(xp, "exp", roofline.PROBE_REP,
+                                                  roofline.PROBE_LANES),
+                    lambda: roofline.op_chain_plain(xp, "exp", roofline.PROBE_REP,
+                                                    roofline.PROBE_LANES),
+                    None, 3 * steps, (xp.numel() + xp[0].numel()) * 4, plain_reps=1)
+    line("kernel", name="op_microbench(exp)", **t, card=repr(smi))
+    report.append({"name": "op_microbench", "route": "cuda",
+                   "source": "monogs_torch/csrc/microbench.cu",
+                   "replaces": "scripts/bench_roofline.py:44 (op_microbench, "
+                               "pl.pallas_call :86)",
+                   "launches": probe_launches, "launches_roofline": probe_launches,
+                   "shape": "probe", "max_abs_err": max(probe_err.values()), **t})
+    return report
+
+
 def pose_error(R, t, R_gt, t_gt) -> tuple[float, float]:
     """(rotation error in rad, camera-centre error) between two w2c poses."""
     import torch
@@ -227,6 +528,7 @@ def main() -> int:
         return 2
     from monogs_torch.ops import kernels, lie, tile_raster
     from monogs_torch.ops.graphics import Intrinsics
+    from monogs_torch.tools import roofline
     from monogs_torch.ops.render import make_raster_config, render
     from monogs_torch.slam.camera import make_frame
     from monogs_torch.slam.tracker import TrackerConfig, track_frame
@@ -244,22 +546,29 @@ def main() -> int:
          count=torch.cuda.device_count(), smi=repr(smi),
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. Build (nvcc from the checkout; Triton compiles at its first launch).
+    # 2. Build (nvcc from the checkout, one process per source, all at once;
+    # Triton compiles at its first launch).
     t0 = time.perf_counter()
-    kernels.build_composite()
-    line("build", composite_s=f"{time.perf_counter() - t0:.1f}")
-    for ln in kernels.build_log().splitlines():
+    kernels.build_all()
+    line("build", sources="+".join(kernels.CUDA_SOURCES),
+         nvcc_s=f"{time.perf_counter() - t0:.1f}")
+    for ln in kernels.build_log("composite").splitlines():
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("  ptxas:", ln.strip().removeprefix("ptxas info    : "))
+    mb = kernels.build_log("microbench")
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", mb)]
+    line("build", microbench_variants=len(regs), registers=f"{min(regs)}-{max(regs)}",
+         spill_bytes=sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", mb)))
 
     # 3. Kernels against their plain twins, at bench widths.
     intr = Intrinsics(fx=520.9, fy=521.0, cx=W / 2, cy=H / 2, width=W, height=H)
     cfg = TrackerConfig(opacity_threshold=0.5, entry_capacity=210432)
     rcfg = make_raster_config(W, H, cfg.tile_size)
     K = cfg.tile_capacity
-    params = make_map(N, SEED, dev)
+    params = roofline.bench_map(N, SEED, dev)
     eye, z3 = torch.eye(3, device=dev), torch.zeros(3, device=dev)
-    _, bins, feats = slab_inputs(params, intr, cfg, eye, z3)
+    feats, bins, slab_cfg = roofline.tracking_slab(dev, SEED)
+    require(slab_cfg == rcfg and K == 2048, "tracking_slab is not the tracker's workload")
     args = (feats, bins.pstart_blk, bins.counts, rcfg)
     out_k, _ = kernels.slab_fwd(*args, K, False)
     out_kt, touched_k = kernels.slab_fwd(*args, K, True)
@@ -300,15 +609,16 @@ def main() -> int:
     s_intr = Intrinsics(fx=110.0, fy=110.0, cx=sw / 2, cy=sh / 2, width=sw, height=sh)
     s_cfg = TrackerConfig(tile_size=16, tile_capacity=512, entry_capacity=None)
     s_rcfg = make_raster_config(sw, sh, 16)
-    s_params = make_map(3000, SEED + 1, dev)
-    views = [slab_inputs(s_params, s_intr, s_cfg, *lie.apply_pose_delta(
+    s_params = roofline.bench_map(3000, SEED + 1, dev)
+    views = [roofline.slab_inputs(s_params, s_intr, *lie.apply_pose_delta(
         eye, z3, torch.tensor([0.02 * i, 0.0, 0.0], device=dev),
-        torch.tensor([0.0, 0.01 * i, 0.0], device=dev))) for i in range(2)]
-    E_cap = views[0][2].shape[2]
-    feats2 = torch.cat([v[2] for v in views]).contiguous()
-    pstart2 = torch.cat([views[0][1].pstart_blk,
-                         views[1][1].pstart_blk + E_cap // 512])
-    counts2 = torch.cat([v[1].counts for v in views])
+        torch.tensor([0.0, 0.01 * i, 0.0], device=dev)), s_cfg.tile_size,
+        s_cfg.tile_capacity, s_cfg.entry_capacity) for i in range(2)]
+    E_cap = views[0][1].shape[2]
+    feats2 = torch.cat([v[1] for v in views]).contiguous()
+    pstart2 = torch.cat([views[0][0].pstart_blk,
+                         views[1][0].pstart_blk + E_cap // 512])
+    counts2 = torch.cat([v[0].counts for v in views])
     args2 = (feats2, pstart2, counts2, s_rcfg)
     o2k, t2k = kernels.slab_fwd(*args2, 512, True)
     o2p, t2p = tile_raster._fwd_slab_plain(*args2, 512, True)
@@ -384,14 +694,14 @@ def main() -> int:
     require(int(track_frame(params, active, rnd, intr, bcfg).n_iters) == 100,
             "forced iterations did not all run")
     reps = []
-    for _ in range(7):
+    for _ in range(5):
         t0 = time.perf_counter()
         track_frame(params, active, rnd, intr, bcfg)
         torch.cuda.synchronize()
         reps.append((time.perf_counter() - t0) / 100 * 1e3)
     ms_per_iter = statistics.median(reps)
     line("timing", ms_per_iter=ms_per_iter, min=min(reps),
-         max=max(reps), reps=7, card=repr(smi))
+         max=max(reps), reps=5, card=repr(smi))
     pcfg = dataclasses.replace(bcfg, max_iters=16)
     prof = device_profile(lambda: track_frame(params, active, rnd, intr, pcfg), 16)
     if prof is None:
@@ -404,44 +714,30 @@ def main() -> int:
         for op, op_ms, calls in prof["top"]:
             print(f"  device: {op_ms:.4f} ms/iter  {calls:7.2f} calls/iter  {op}")
 
-    pairs = live_pairs(feats, bins, rcfg)
+    pairs = roofline.slab_pairs(feats, bins.pstart_blk, bins.counts, rcfg)["live"]
     feat_bytes = 10 * 4 * pairs // rcfg.pixels
-    rows = [
-        ("slab_fwd", "cuda", "monogs_torch/csrc/composite.cu",
-         "monogs_tpu/ops/tile_raster.py:284 (_slab_fwd_kernel, via _fwd_slab :467)",
-         lambda: kernels.slab_fwd(*args, K, False),
-         lambda: tile_raster._fwd_slab_plain(*args, K, False), None,
-         FWD_OPS_PER_PAIR * pairs, feat_bytes + out_p.numel() * 4, err_fwd),
-        ("slab_bwd", "cuda", "monogs_torch/csrc/composite.cu",
-         "monogs_tpu/ops/tile_raster.py:355 (_slab_bwd_kernel, via _bwd_slab :517)",
-         lambda: kernels.slab_bwd(*args[:3], baux, rcfg),
-         lambda: tile_raster._bwd_slab_plain(*args[:3], baux, rcfg), None,
-         BWD_OPS_PER_PAIR * pairs, 2 * feat_bytes + baux.numel() * 4, err_bwd),
-        ("rows_to_channels", "triton", "monogs_torch/csrc/relayout.py",
-         "monogs_tpu/ops/tile_raster.py:622 (rows_to_channels / _relayout_kernel :618)",
-         lambda: kernels.rows_to_channels(x),
-         lambda: tile_raster._rows_to_channels_plain(x),
-         lambda: x.t().contiguous(), 0, 2 * x.numel() * 4, 0.0),
-    ]
-    report = []
-    for (kname, route, source, replaces, kfn, pfn, lfn, ops, nbytes, err) in rows:
-        ms = cuda_ms(kfn, 20, graph=True)
-        eager_ms = cuda_ms(kfn, 20)
-        plain_ms = cuda_ms(pfn, 3, warmup=1)
-        library_ms = cuda_ms(lfn, 20, graph=True) if lfn else None
-        bound_ops, bound_bytes = ops / H100_FP32_OPS * 1e3, nbytes / H100_HBM_BYTES * 1e3
-        report.append({
-            "name": kname, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(bound_ops, bound_bytes),
-            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
-            "library_ms": library_ms,
-        })
-        line("kernel", name=kname, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-             library_ms=library_ms, bound_ms=report[-1]["bound_ms"], card=repr(smi))
-    line("kernel", name="slab_fwd(touched)",
+    track_rows = {
+        "slab_fwd": (lambda: kernels.slab_fwd(*args, K, False),
+                     lambda: tile_raster._fwd_slab_plain(*args, K, False), None,
+                     FWD_OPS_PER_PAIR * pairs, feat_bytes + out_p.numel() * 4),
+        "slab_bwd": (lambda: kernels.slab_bwd(*args[:3], baux, rcfg),
+                     lambda: tile_raster._bwd_slab_plain(*args[:3], baux, rcfg), None,
+                     BWD_OPS_PER_PAIR * pairs, 2 * feat_bytes + baux.numel() * 4),
+        "rows_to_channels": (lambda: kernels.rows_to_channels(x),
+                             lambda: tile_raster._rows_to_channels_plain(x),
+                             lambda: x.t().contiguous(), 0, 2 * x.numel() * 4),
+    }
+    for kname, (kfn, pfn, lfn, ops, nbytes) in track_rows.items():
+        t = time_kernel(kfn, pfn, lfn, ops, nbytes)
+        line("kernel", shape="tracking", name=kname, **t, card=repr(smi))
+    line("kernel", shape="tracking", name="slab_fwd(touched)",
          ms=cuda_ms(lambda: kernels.slab_fwd(*args, K, True), 20, graph=True),
          live_pairs=pairs, total_s=f"{time.perf_counter() - t_start:.1f}")
+    track_slab = (feats, bins, rcfg)
+
+    # 6-8. The mapping path, its kernels and the roofline probe.
+    report = mapping_phases(dev, smi, launches, track_slab)
+    line("done", total_s=f"{time.perf_counter() - t_start:.1f}")
 
     print(smi)
     print(json.dumps({"kernels": report}))

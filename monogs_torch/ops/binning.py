@@ -116,6 +116,30 @@ def _tile_candidates(u, v, radius, valid, opacity, conic,
 
 
 @torch.no_grad()
+def measure_entry_demand(u, v, radius, valid, opacity, conic, img_w: int,
+                         img_h: int, tile_size: int, tile_capacity: int,
+                         max_dup: int, max_dup_gen: int | None = None,
+                         cull_alpha: float = ALPHA_EPS):
+    """Occupancy probe: the SLAB-padded slab size the scene needs (sum over
+    tiles of ceil(min(count, K) / SLAB) * SLAB) and the live survivor
+    count, without building the slab. -> two () int32 tensors."""
+    if conic is not None and not isinstance(conic, tuple):
+        conic = (conic[:, 0], conic[:, 1], conic[:, 2])
+    tiles_x = -(-img_w // tile_size)
+    tiles_y = -(-img_h // tile_size)
+    T = tiles_x * tiles_y
+    tile_id, _, _, _, _ = _tile_candidates(
+        u.detach(), v.detach(), radius.detach(), valid, opacity, conic,
+        tiles_x, tiles_y, T, tile_size, max_dup, max_dup_gen, cull_alpha)
+    sort_tile = torch.sort(tile_id.reshape(-1)).values
+    starts = torch.searchsorted(
+        sort_tile, torch.arange(T + 1, dtype=torch.int32, device=u.device))
+    seg_counts = torch.clamp_max(starts[1:] - starts[:-1], tile_capacity)
+    padded = (-(-seg_counts // SLAB) * SLAB).sum()
+    return padded.to(torch.int32), seg_counts.sum().to(torch.int32)
+
+
+@torch.no_grad()
 def tile_bin(
     mean2d,                   # (N, 2) pixel coords, or None with uv=
     radius: torch.Tensor,     # (N,) screen radius (0 => culled)

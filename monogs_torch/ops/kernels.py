@@ -1,18 +1,20 @@
 """Build, bind and launch the hand-written Hopper kernels.
 
-    slab_fwd          csrc/composite.cu  (CUDA C++, sm_90a, ctypes)
-    slab_bwd          csrc/composite.cu  (CUDA C++, sm_90a, ctypes)
-    rows_to_channels  csrc/relayout.py   (Triton)
+    slab_fwd          csrc/composite.cu   (CUDA C++, sm_90a, ctypes)
+    slab_bwd          csrc/composite.cu   (CUDA C++, sm_90a, ctypes)
+    rows_to_channels  csrc/relayout.py    (Triton; (N, C) or batched (B, N, C))
+    op_microbench     csrc/microbench.cu  (CUDA C++, sm_90a, ctypes)
 
-The CUDA source is compiled with nvcc into a shared library with a plain C
+Each CUDA source is compiled with nvcc into a shared library with a plain C
 interface at first use, under build/kernels/ beside the package (named by
-a hash of the source and flags, so an edit rebuilds); the Triton kernel is
+a hash of the source and flags, so an edit rebuilds); `build_all` starts
+one nvcc per source at once. The Triton kernel is
 loaded by path and compiled by Triton at its first launch, with its cache
 under build/triton/. Nothing here runs at import, so the package imports on
 a machine without nvcc, triton or a card.
 
 Each launcher takes CUDA tensors only (the dispatchers in tile_raster.py
-send CPU tensors to the plain twins), checks device, dtype, shape and
+and tools/roofline.py send CPU tensors to the plain twins), checks device, dtype, shape and
 contiguity, allocates its outputs with torch, launches on the current
 stream, raises if the launch failed, and counts its launches in the plain
 integer attribute `launches`. It never synchronises.
@@ -43,6 +45,7 @@ NVCC_FLAGS = (
     "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CUDA_SOURCES = ("composite", "microbench")
 
 
 def _nvcc() -> str:
@@ -57,42 +60,65 @@ def _nvcc() -> str:
                        "CUDA toolkit (set CUDA_HOME)")
 
 
-@functools.cache
-def build_composite() -> str:
-    """Compile csrc/composite.cu (once per source hash); returns the path of
-    the shared library. The compiler's -Xptxas -v report (registers, shared
-    memory, spills) is kept beside it as <lib>.log."""
-    src = os.path.join(CSRC_DIR, "composite.cu")
+def _lib_path(name: str) -> tuple[str, str]:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def build_all(names=CUDA_SOURCES) -> dict:
+    """Compile csrc/<name>.cu for each name not built yet, one nvcc each,
+    all started together; returns {name: path of the shared library}. The
+    compiler's -Xptxas -v report (registers, shared memory, spills) is kept
+    beside each library as <lib>.log."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    lib = os.path.join(BUILD_DIR, f"libcomposite-{digest.hexdigest()[:12]}.so")
-    if not os.path.exists(lib):
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
+    paths = {n: _lib_path(n) for n in names}
+    procs = {}
+    for n, (src, lib) in paths.items():
+        if not os.path.exists(lib):
+            tmp = f"{lib}.{os.getpid()}.tmp"
+            procs[n] = (subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True), tmp)
+    failed = []
+    for n, (proc, tmp) in procs.items():
+        out, err = proc.communicate()
+        src, lib = paths[n]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+            failed.append(f"nvcc failed on {src}:\n{err}")
+            continue
         with open(lib[:-3] + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
+            f.write(out + err)
         os.replace(tmp, lib)
-    return lib
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {n: lib for n, (_, lib) in paths.items()}
 
 
-def build_log() -> str:
-    """The -Xptxas -v report of the composite library's build."""
-    with open(build_composite()[:-3] + ".log") as f:
+def build_log(name: str = "composite") -> str:
+    """The -Xptxas -v report of csrc/<name>.cu's build."""
+    with open(build_all((name,))[name][:-3] + ".log") as f:
         return f.read()
 
 
 @functools.cache
 def _composite_lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_composite())
+    lib = ctypes.CDLL(build_all(("composite",))["composite"])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.slab_fwd.argtypes = [ptr] * 5 + [i32] * 9 + [ptr]
     lib.slab_fwd.restype = i32
     lib.slab_bwd.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
     lib.slab_bwd.restype = i32
+    return lib
+
+
+@functools.cache
+def _microbench_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build_all(("microbench",))["microbench"])
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.op_microbench.argtypes = [ptr, ptr, ctypes.c_longlong] + [i32] * 5 + [ptr]
+    lib.op_microbench.restype = i32
     return lib
 
 
@@ -180,14 +206,19 @@ RELAYOUT_BLOCK = 512
 
 
 def rows_to_channels(x: torch.Tensor) -> torch.Tensor:
-    """Relayout kernel: (N, C) row-major -> (C, N) channel-major."""
-    _check(x, "x", torch.float32, 2)
-    N, C = x.shape
+    """Relayout kernel: (N, C) -> (C, N), or (B, N, C) -> (B, C, N) in one
+    launch (the grid's second axis runs over B)."""
+    if x.dim() not in (2, 3):
+        raise ValueError(f"rows_to_channels: need (N, C) or (B, N, C), "
+                         f"got {tuple(x.shape)}")
+    _check(x, "x", torch.float32, x.dim())
+    N, C = x.shape[-2:]
+    B = x.shape[0] if x.dim() == 3 else 1
     if C & (C - 1):
         raise ValueError(f"rows_to_channels: C={C} is not a power of two")
-    out = torch.empty((C, N), dtype=x.dtype, device=x.device)
-    if N:
-        grid = (-(-N // RELAYOUT_BLOCK),)
+    out = torch.empty((*x.shape[:-2], C, N), dtype=x.dtype, device=x.device)
+    if N and B:
+        grid = (-(-N // RELAYOUT_BLOCK), B)
         with torch.cuda.device(x.device):
             _relayout_module().rows_to_channels_kernel[grid](
                 x, out, N, C=C, BLOCK=RELAYOUT_BLOCK, num_warps=4)
@@ -195,6 +226,36 @@ def rows_to_channels(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+MICROBENCH_OPS = ("fma", "exp", "log1p", "div")
+MICROBENCH_GROUPS = 8
+
+
+def op_microbench(x: torch.Tensor, op: str, n_rep: int,
+                  lanes: int) -> torch.Tensor:
+    """Throughput-probe kernel: x (blocks, P, C) float32, x >= 0 ->
+    (1, P, C), each element's sum of `lanes` chains of `n_rep` steps of
+    `op`, maximised over the blocks (csrc/microbench.cu)."""
+    _check(x, "x", torch.float32, 3)
+    if op not in MICROBENCH_OPS:
+        raise ValueError(f"op must be one of {MICROBENCH_OPS}, got {op!r}")
+    if lanes not in (1, 2, 4, 8) or n_rep < 0:
+        raise ValueError(f"lanes must be 1, 2, 4 or 8 and n_rep >= 0, "
+                         f"got {lanes}, {n_rep}")
+    blocks, P, C = x.shape
+    out = torch.zeros((1, P, C), dtype=torch.float32, device=x.device)
+    if blocks and P * C:
+        with torch.cuda.device(x.device):
+            rc = _microbench_lib().op_microbench(
+                x.data_ptr(), out.data_ptr(), P * C, blocks, n_rep, lanes,
+                MICROBENCH_OPS.index(op), min(blocks, MICROBENCH_GROUPS),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        if rc:
+            raise RuntimeError(f"op_microbench launch failed: CUDA error {rc}")
+        op_microbench.launches += 1
+    return out
+
+
 slab_fwd.launches = 0
 slab_bwd.launches = 0
 rows_to_channels.launches = 0
+op_microbench.launches = 0

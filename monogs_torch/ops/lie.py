@@ -80,9 +80,10 @@ def se3_exp(tau: torch.Tensor) -> torch.Tensor:
     rho, theta = tau[:3], tau[3:]
     R = so3_exp(theta)
     t = _mv(so3_left_jacobian(theta), rho)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=tau.dtype,
-                          device=tau.device)
-    return torch.cat([torch.cat([R, t[:, None]], dim=1), bottom], dim=0)
+    # The bottom row from fills, not a host list: a host-to-device copy
+    # would synchronise the stream on every pose update.
+    bottom = torch.cat([torch.zeros_like(tau[:3]), torch.ones_like(tau[:1])])
+    return torch.cat([torch.cat([R, t[:, None]], dim=1), bottom[None]], dim=0)
 
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:
@@ -101,9 +102,8 @@ def apply_pose_delta(R: torch.Tensor, t: torch.Tensor, rho: torch.Tensor,
                      theta: torch.Tensor):
     """Retraction (R, t) <- SE3_exp([rho, theta]) @ (R, t); differentiable in
     (rho, theta), which is how the tracker gets its pose gradients."""
-    dT = se3_exp(torch.cat([rho, theta]))
-    dR = dT[:3, :3]
-    return _mm(dR, R), _mv(dR, t) + dT[:3, 3]
+    dR = so3_exp(theta)
+    return _mm(dR, R), _mv(dR, t) + _mv(so3_left_jacobian(theta), rho)
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:

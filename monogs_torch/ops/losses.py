@@ -1,14 +1,18 @@
-"""Tracking loss, edge mask and median depth (port of
-monogs_tpu/ops/losses.py, tracking slice).
+"""Tracking and mapping losses, edge mask, median depth, SSIM and PSNR
+(port of monogs_tpu/ops/losses.py).
 
-Two numerical choices keep the port equal to the JAX package:
+Numerical choices that keep the port equal to the JAX package:
   - the 3x3 Scharr and box filters are 9 shifted sums over a reflect-padded
     image, not a convolution: cuDNN would run a float32 convolution in TF32
     and flip edge-mask pixels near the median threshold;
   - medians average the two middle values, as jnp.median and jnp.nanmedian
     do (torch.median returns the lower one), through an explicit sort with
-    no host read.
-The mapping losses, ssim, psnr and depth_reg come with the mapping slice.
+    no host read;
+  - `ssim`'s separable Gaussian blur is a depthwise `F.conv2d`, as the JAX
+    package leaves it to XLA's convolution. On the card cuDNN runs float32
+    convolutions in TF32 unless `torch.backends.cudnn.allow_tf32` is False;
+    this module sets no global flag, so a caller that needs float32 SSIM
+    (parity, evaluation) turns TF32 off itself.
 """
 
 from __future__ import annotations
@@ -113,3 +117,79 @@ def get_median_depth(depth: torch.Tensor, mask: torch.Tensor | None = None):
         valid = valid & mask
     return _midpoint_median(torch.where(valid, depth,
                                         torch.full_like(depth, float("nan"))))
+
+
+def get_loss_mapping(
+    render_rgb: torch.Tensor,
+    render_depth: torch.Tensor,
+    gt_rgb: torch.Tensor,
+    gt_depth: torch.Tensor,
+    gt_mask: torch.Tensor,
+    exposure_a: torch.Tensor,
+    exposure_b: torch.Tensor,
+    init: bool = False,
+    lambda_depth: float = 0.9,
+) -> torch.Tensor:
+    """Mapping loss: masked L1 rgb and L1 depth, lambda_depth * rgb +
+    (1 - lambda_depth) * depth. Map initialisation skips the exposure
+    affine. Images may be in tile layout with the padding masked out."""
+    rgb = render_rgb if init else torch.exp(exposure_a) * render_rgb + exposure_b
+    l1_rgb = masked_mean(torch.abs(rgb - gt_rgb), gt_mask[..., None].expand(rgb.shape))
+    l1_depth = masked_mean(torch.abs(render_depth - gt_depth), gt_depth > 0)
+    return lambda_depth * l1_rgb + (1.0 - lambda_depth) * l1_depth
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(a - b))
+
+
+def _gaussian_window(window_size: int, sigma: float, device) -> torch.Tensor:
+    x = torch.arange(window_size, dtype=torch.float32, device=device) - window_size // 2
+    g = torch.exp(-(x * x) / (2.0 * sigma * sigma))
+    return g / torch.sum(g)
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
+         padding: str = "valid") -> torch.Tensor:
+    """Differentiable SSIM of (H, W, C) images with a separable Gaussian
+    window (sigma 1.5); padding "valid" (fused-ssim's default) or "same"."""
+    C1, C2 = 0.01 ** 2, 0.03 ** 2
+    c = img1.shape[-1]
+    g = _gaussian_window(window_size, 1.5, img1.device)
+    kv = g.reshape(1, 1, window_size, 1).expand(c, 1, window_size, 1)
+    kh = g.reshape(1, 1, 1, window_size).expand(c, 1, 1, window_size)
+    pad = 0 if padding == "valid" else window_size // 2
+
+    def blur(x):                      # (H, W, C) -> depthwise separable blur
+        y = x.permute(2, 0, 1)[None]
+        y = F.conv2d(y, kv, padding=(pad, 0), groups=c)
+        y = F.conv2d(y, kh, padding=(0, pad), groups=c)
+        return y[0].permute(1, 2, 0)
+
+    mu1, mu2 = blur(img1), blur(img2)
+    mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1_sq = blur(img1 * img1) - mu1_sq
+    sigma2_sq = blur(img2 * img2) - mu2_sq
+    sigma12 = blur(img1 * img2) - mu12
+    ssim_map = ((2 * mu12 + C1) * (2 * sigma12 + C2)) / (
+        (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2))
+    return torch.mean(ssim_map)
+
+
+def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """Mean PSNR over the image (inputs in [0, 1])."""
+    mse = torch.mean((img1 - img2) ** 2)
+    return 20.0 * torch.log10(1.0 / torch.sqrt(mse + 1e-12))
+
+
+def depth_reg(depth: torch.Tensor, gt_rgb: torch.Tensor) -> torch.Tensor:
+    """Edge-aware depth smoothness (part of the public loss surface; the
+    SLAM loop does not use it)."""
+    gray = torch.mean(gt_rgb, dim=-1)
+    mask_v, mask_h = image_gradient_mask(depth)
+    gray_v, gray_h = image_gradient(gray)
+    depth_v, depth_h = image_gradient(depth)
+    w_v = torch.exp(-10.0 * gray_v ** 2)
+    w_h = torch.exp(-10.0 * gray_h ** 2)
+    return (masked_mean(w_h * torch.abs(depth_h), mask_h)
+            + masked_mean(w_v * torch.abs(depth_v), mask_v))

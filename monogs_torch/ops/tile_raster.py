@@ -21,19 +21,31 @@ A tile skips a whole CHUNK of slots once every one of its pixels (padding
 pixels included) has log T < LOG_SKIP. The backward uses
     dL/dalpha_k = T_k g_k - S_k / (1 - alpha_k),  S_k = sum_{j>k} w_j g_j.
 
-Kernels. Each of the three TPU kernels has a hand-written Hopper kernel in
-ops/kernels.py and a plain PyTorch twin here:
+Kernels. Each of the three compositing-path TPU kernels has a
+hand-written Hopper kernel in ops/kernels.py and a plain PyTorch twin here:
     _fwd_slab  -> kernels.slab_fwd       (CUDA, csrc/composite.cu)
     _bwd_slab  -> kernels.slab_bwd       (CUDA, csrc/composite.cu)
-    rows_to_channels -> kernels.rows_to_channels (Triton, csrc/relayout.py)
+    rows_to_channels -> kernels.rows_to_channels (Triton, csrc/relayout.py;
+                        (N, 16) or the window's batched (Wn, N, 16))
 The dispatchers take the plain twin only for a CPU tensor; a CUDA tensor
 launches the kernel or raises. The plain twins keep the kernels' arithmetic
 exactly: in-chunk prefixes are sequential float32 sums (`_seq_prefix`), so
 on one device `touched` is bit-identical between a kernel and its twin.
+
+CPU determinism. In a fresh process the first float32 `torch.exp` that
+runs on several intra-op threads can return wrong values on one worker
+thread's chunk (relative errors up to 1.5e-4; seen with torch 2.13.0+cpu,
+AVX512, 8 threads, on the exp of a `clamp_max` output), while every later
+call is right. A single-threaded call of each transcendental the twins use
+first removes it (`warm_cpu_math`, run once at the first CPU `_alpha`, which
+the dense oracle and both slab twins go through before any other
+transcendental), so they give the same bits on their first call as on
+every later one.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -96,6 +108,8 @@ def _pix_valid(cfg: RasterConfig, ox, oy, px, py):
 def _alpha(u, v, a, b, c, opa, px, py):
     """Per-(tile, pixel, slot) alpha from (T, 1, S) slot features and (P, 1)
     tile-local pixel coords: returns dx, dy, expp, alpha_raw, ok, alpha."""
+    if u.device.type == "cpu":
+        warm_cpu_math()
     dx = px - u
     dy = py - v
     power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
@@ -105,6 +119,21 @@ def _alpha(u, v, a, b, c, opa, px, py):
     alpha = torch.where(ok, torch.clamp_max(alpha_raw, ALPHA_MAX),
                         torch.zeros_like(alpha_raw))
     return dx, dy, expp, alpha_raw, ok, alpha
+
+
+@functools.cache
+def warm_cpu_math() -> None:
+    """Run torch.exp and torch.log1p once on the CPU on one intra-op
+    thread (see the module docstring); later multi-threaded calls then
+    compute right from the first."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with torch.no_grad():
+            x = torch.linspace(-20.0, 0.0, 4096)
+            torch.log1p(-0.5 * torch.exp(x))
+    finally:
+        torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------
@@ -328,12 +357,14 @@ def composite_slab(feats_cm: torch.Tensor, pstart_blk: torch.Tensor,
 
 
 def _rows_to_channels_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain twin of the relayout kernel: (N, C) -> (C, N) by columns."""
-    return torch.stack([x[:, c] for c in range(x.shape[1])])
+    """Plain twin of the relayout kernel: (..., N, C) -> (..., C, N) by
+    columns."""
+    return torch.stack([x[..., c] for c in range(x.shape[-1])], dim=-2)
 
 
 def rows_to_channels(x: torch.Tensor) -> torch.Tensor:
-    """(N, 16) row-major -> (16, N) channel-major."""
+    """(N, 16) row-major -> (16, N) channel-major, or a batch (B, N, 16) ->
+    (B, 16, N) in one kernel launch."""
     if x.device.type == "cpu":
         return _rows_to_channels_plain(x)
     return kernels.rows_to_channels(x)
@@ -389,6 +420,62 @@ def gather_pos(feats_full, gauss_of_pos, gsort_pos, gseg_start, g_last,
                             g_last, max_dup)
 
 
+class _PackFeaturesWindow(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u, v, ca, cb, cc, opacity, depth, r, g, b, gop_w,
+                gsort_pos_w, gseg_start_w, g_last_w, max_dup):
+        Wn, N = u.shape
+        E_cap = gop_w.shape[1]
+        rgb = (r, g, b)
+        # (Wn, N+1, 16) per-keyframe tables with the sentinel row N; the
+        # shared rgb is broadcast here, outside autograd.
+        table = u.new_zeros((Wn, N + 1, FEAT_ROWS))
+        for c, ch in enumerate((u, v, ca, cb, cc, opacity, *rgb, depth)):
+            table[:, :N, c] = ch
+        img = torch.arange(Wn, device=u.device)[:, None]
+        idx = (gop_w.to(torch.int64) + img * (N + 1)).reshape(-1)
+        rows = table.reshape(-1, FEAT_ROWS).index_select(0, idx)
+        ctx.save_for_backward(gsort_pos_w, gseg_start_w, g_last_w)
+        ctx.max_dup, ctx.N = max_dup, N
+        return rows.reshape(Wn, E_cap, FEAT_ROWS).transpose(1, 2).contiguous()
+
+    @staticmethod
+    def backward(ctx, dcm):
+        gsort_pos_w, gseg_start_w, g_last_w = ctx.saved_tensors
+        Wn, _, E_cap = dcm.shape
+        # The window's gaussian-sorted slab views, concatenated: every
+        # keyframe's list starts a segment (gseg_start[0] = 1), so one
+        # segmented scan over Wn * E_cap rows never crosses keyframes.
+        off = torch.arange(Wn, device=dcm.device)[:, None] * E_cap
+        gsp = (gsort_pos_w.to(torch.int64) + off).reshape(-1)
+        glast = torch.where(g_last_w < E_cap, g_last_w.to(torch.int64) + off,
+                            torch.full_like(off, Wn * E_cap)).reshape(-1)
+        dpos = dcm.transpose(1, 2).reshape(Wn * E_cap, FEAT_ROWS)
+        gr = _segsum_last(dpos, gsp, gseg_start_w.reshape(-1), glast,
+                          ctx.max_dup).reshape(Wn, ctx.N, FEAT_ROWS)
+        grT = rows_to_channels(gr)                         # (Wn, 16, N)
+        return (grT[:, 0], grT[:, 1], grT[:, 2], grT[:, 3], grT[:, 4],
+                grT[:, 5], grT[:, 9], grT[:, 6].sum(0), grT[:, 7].sum(0),
+                grT[:, 8].sum(0), None, None, None, None, None)
+
+
+def pack_features_window(u, v, ca, cb, cc, opacity, depth, r, g, b,
+                         gauss_of_pos_w, gsort_pos_w, gseg_start_w, g_last_w,
+                         max_dup: int) -> torch.Tensor:
+    """Batched-window pack and slab gather: per-keyframe (Wn, N) channels
+    and the SHARED (N,) rgb channels -> (Wn, 16, E_cap) kernel layout.
+
+    The rgb channels are broadcast across keyframes inside the forward
+    (never as an autograd expand), and their gradients are summed over the
+    window in the backward. The backward reduces per-position gradients per
+    Gaussian through the gaussian-sorted slab views (_segsum_last, one scan
+    over the whole window) and relayouts the (Wn, N, 16) result to
+    channel-major in ONE launch of kernel 3 (rows_to_channels)."""
+    return _PackFeaturesWindow.apply(u, v, ca, cb, cc, opacity, depth, r, g,
+                                     b, gauss_of_pos_w, gsort_pos_w,
+                                     gseg_start_w, g_last_w, max_dup)
+
+
 def _stack_features_ch(u, v, ca, cb, cc, opacity, r, g, b, depth):
     """(N,) channels -> (N+1, 16) feature rows; row N is the all-zero
     sentinel. opacity must already be masked by validity."""
@@ -430,8 +517,11 @@ def pack_features_slab(u, v, ca, cb, cc, opacity, rgb, depth, gauss_of_pos,
 
 def pack_features(mean2d, conic, opacity, rgb, depth,
                   index_matrix: torch.Tensor) -> torch.Tensor:
-    """Dense (T, K, 16) gather for the oracle path (autograd scatter-add)."""
+    """Dense (T, K, 16) gather for the oracle path. index_select, not
+    advanced indexing: its backward (index_add_) sums in a fixed order on
+    the CPU, where advanced indexing's scatter-add changes from run to run."""
     feats_full = _stack_features_ch(
         mean2d[:, 0], mean2d[:, 1], conic[:, 0], conic[:, 1], conic[:, 2],
         opacity, rgb[:, 0], rgb[:, 1], rgb[:, 2], depth)
-    return feats_full[index_matrix.to(torch.int64)]
+    idx = index_matrix.to(torch.int64)
+    return feats_full.index_select(0, idx.reshape(-1)).reshape(*idx.shape, FEAT_ROWS)

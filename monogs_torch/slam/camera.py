@@ -1,7 +1,7 @@
-"""Per-frame camera state (port of monogs_tpu/slam/camera.py, tracking
-slice): the pose estimate (R, t world-to-camera), ground truth, image
-buffers and the learned exposure. The stacked keyframe `Window` comes with
-the mapping slice.
+"""Per-frame camera state (port of monogs_tpu/slam/camera.py): the pose
+estimate (R, t world-to-camera), ground truth, image buffers and the
+learned exposure, and the mapper's stacked keyframe `Window` (a Frame whose
+tensors carry a leading window axis).
 """
 
 from __future__ import annotations
@@ -59,3 +59,66 @@ def make_frame(frame_idx: int, rgb, depth, pose_w2c, mask=None,
 
 def with_pose(frame: Frame, R: torch.Tensor, t: torch.Tensor) -> Frame:
     return frame._replace(R=R, t=t)
+
+
+
+class Window(NamedTuple):
+    """Fixed-capacity stacked keyframe window (the mapper's working set):
+    `frames` is a Frame whose tensors carry a leading (Wmax,) axis, `valid`
+    the (Wmax,) slot occupancy. Slot order is the tracker's keyframe list,
+    newest first."""
+
+    frames: Frame
+    valid: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.valid.shape[0]
+
+
+def empty_window(capacity: int, template: Frame) -> Window:
+    dev = template.R.device
+    frames = Frame(*(torch.zeros((capacity,) + tuple(x.shape), dtype=x.dtype,
+                                 device=dev) for x in template))
+    return Window(frames=frames, valid=torch.zeros(capacity, dtype=torch.bool,
+                                                    device=dev))
+
+
+def window_set(window: Window, slot: int, frame: Frame, valid=True) -> Window:
+    """A new Window with `frame` in `slot` (the input is not modified)."""
+    frames = []
+    for buf, x in zip(window.frames, frame):
+        buf = buf.clone()
+        buf[slot] = x
+        frames.append(buf)
+    v = window.valid.clone()
+    v[slot] = valid
+    return Window(frames=Frame(*frames), valid=v)
+
+
+def window_get(window: Window, slot: int) -> Frame:
+    return Frame(*(buf[slot] for buf in window.frames))
+
+
+def window_update(window: Window, frame: Frame, perm: torch.Tensor,
+                  valid: torch.Tensor) -> Window:
+    """The next keyframe window from the previous one, on the device: slot s
+    takes old slot perm[s], then slot 0 becomes the new keyframe `frame`."""
+    perm = perm.to(device=window.valid.device, dtype=torch.int64)
+    frames = []
+    for buf, x in zip(window.frames, frame):
+        buf = buf.index_select(0, perm)
+        buf[0] = x
+        frames.append(buf)
+    return Window(frames=Frame(*frames), valid=valid.to(window.valid.device))
+
+
+def window_from_list(frames: list, capacity: int) -> Window:
+    """Stack a list of Frames into a padded Window."""
+    if not frames or len(frames) > capacity:
+        raise ValueError(f"need 1..{capacity} frames, got {len(frames)}")
+    w = empty_window(capacity, frames[0])
+    for buf, xs in zip(w.frames, zip(*frames)):
+        buf[: len(frames)] = torch.stack(xs)
+    w.valid[: len(frames)] = True
+    return w

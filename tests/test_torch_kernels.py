@@ -11,7 +11,8 @@ with the card and no JAX:
 Tolerances are the JAX suite's (tests/test_raster.py:228-230, :282):
 forward rgb / alpha 1e-5 and depth 1e-4 absolute, gradients rtol 2e-3 /
 atol 1e-6 plus a floor for the order of the per-slot pixel sums
-(`_grad_close`); `touched` and the relayout bit-exact.
+(`_grad_close`); `touched` and the relayout bit-exact; the roofline probe
+1e-5 of its largest value.
 """
 
 import numpy as np
@@ -176,4 +177,74 @@ def test_composite_and_gather_autograd_on_card_match_cpu(cuda):
     _fwd_close(out_c, out_h)
     assert torch.equal(touched_c, touched_h)
     for gc, gh in zip(grads_c, grads_h):
+        _grad_close(gc, gh, dims=0)
+
+
+def test_slab_kernels_match_plain_at_window_8(cuda):
+    """The mapping window's layout: 8 slabs, global block ids, one launch."""
+    feats, pstart, counts, cfg, _ = _slab(8)
+    args = [x.to(cuda) for x in (feats, pstart, counts)]
+    out_k, touched_k = kernels.slab_fwd(*args, cfg, CAP, True)
+    out_p, touched_p = tr._fwd_slab_plain(*args, cfg, CAP, True)
+    _fwd_close(out_k, out_p)
+    assert torch.equal(touched_k, touched_p)
+    g = torch.randn(out_p.shape, generator=torch.Generator(cuda).manual_seed(4), device=cuda)
+    baux = tr.bwd_aux(out_p, g)
+    _grad_close(kernels.slab_bwd(*args, baux, cfg), tr._bwd_slab_plain(*args, baux, cfg),
+                dims=(0, 2))
+
+
+@pytest.mark.parametrize("shape", [(8, 131_072, 16), (3, 1001, 16), (1, 1, 16)])
+def test_rows_to_channels_batched_matches_plain(cuda, shape):
+    x = torch.randn(shape, generator=torch.Generator(cuda).manual_seed(shape[1]), device=cuda)
+    before = kernels.rows_to_channels.launches
+    y = kernels.rows_to_channels(x)
+    assert kernels.rows_to_channels.launches == before + 1
+    assert torch.equal(y, tr._rows_to_channels_plain(x))
+
+
+@pytest.mark.parametrize("op", ["fma", "exp", "log1p", "div"])
+def test_op_microbench_matches_plain(cuda, op):
+    """The probe against its twin: rounding may differ by an ulp a step
+    between expf / log1pf and torch's, so 1e-5 of the largest value."""
+    from monogs_torch.tools import roofline
+
+    x = roofline.probe_input((16, 1024, 128), seed=1, device=cuda)
+    before = kernels.op_microbench.launches
+    k = kernels.op_microbench(x, op, 16, 4)
+    p = roofline.op_chain_plain(x, op, 16, 4)
+    assert kernels.op_microbench.launches == before + 1
+    assert float((k - p).abs().max()) <= 1e-5 * float(p.abs().max())
+
+
+def test_window_render_on_card_matches_cpu(cuda):
+    """render_window's gradients on the card (slab kernels and the batched
+    relayout, one launch each) against the CPU twins."""
+    from monogs_torch.ops.render import render_window
+
+    params = _params(n=2000, seed=3)
+    intr = Intrinsics(fx=110.0, fy=110.0, cx=W / 2, cy=H / 2, width=W, height=H)
+    Rs = torch.eye(3).repeat(3, 1, 1)
+    ts = torch.tensor([[0.0, 0, 0], [0.02, 0, 0], [0.0, 0.02, 0]])
+    w = torch.randn((3, H, W, 3), generator=torch.Generator().manual_seed(5))
+
+    def run(dev):
+        leaves = [params[k].to(dev).requires_grad_() for k in
+                  ("xyz", "log_scales", "quats", "opacity_logit", "rgb")]
+        z = torch.zeros((3, 3), device=dev)
+        out = render_window(leaves[0], torch.exp(leaves[1]), leaves[2],
+                            torch.sigmoid(leaves[3]), leaves[4], Rs.to(dev), ts.to(dev),
+                            intr, rhos=z, thetas=z, tile_size=TILE, tile_capacity=CAP,
+                            max_dup=4, max_dup_gen=16)
+        grads = torch.autograd.grad((out.rgb * w.to(dev)).sum(), leaves)
+        return out.rgb.detach().cpu(), out.n_touched.cpu(), [g.cpu() for g in grads]
+
+    before = [k.launches for k in (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels)]
+    rgb_c, nt_c, g_c = run(cuda)
+    after = [k.launches for k in (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    rgb_h, nt_h, g_h = run(torch.device("cpu"))
+    torch.testing.assert_close(rgb_c, rgb_h, atol=1e-5, rtol=0)
+    assert torch.equal(nt_c, nt_h)
+    for gc, gh in zip(g_c, g_h):
         _grad_close(gc, gh, dims=0)
