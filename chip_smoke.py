@@ -6,11 +6,17 @@
 Phases, one line each; any failure propagates and exits non-zero:
   1. device: name, count, `nvidia-smi` name and power limit;
   2. build: nvcc of monogs_torch/csrc/composite.cu and microbench.cu
-     (sm_90a, one nvcc each, started together) and their -Xptxas -v
-     reports;
+     (sm_90a, one nvcc each, started together), their -Xptxas -v reports,
+     and each slab kernel's launch shape at tile 32 (threads, pixels a
+     thread, blocks an SM, registers, spill bytes): no spills, slab_bwd at
+     two or more blocks an SM;
   3. kernels against their plain PyTorch twins on the card, at the
      bench.py widths (640x480, 100k Gaussians, tile 32, K 2048,
-     entry_capacity 210432) and at n_img=2 on a small slab;
+     entry_capacity 210432) and at n_img=2 on a small slab; the two
+     forward variants' images bit-identical, two slab_bwd launches
+     bit-identical, the tile order against its twin, no host sync in the
+     tile order and slab launches, and the tiles' live chunks (max, p99,
+     mean) and active warp-slot share;
   4. the tracking path: 3 frames rendered at known poses through `render`,
      each tracked with `track_frame` from a perturbed start; the pose error
      must shrink and every kernel must have launched on that path;
@@ -24,9 +30,10 @@ Phases, one line each; any failure propagates and exits non-zero:
      tile 32, K 1024, entry_capacity 210432, its map distributions with
      opacity logits N(0, 1); the 8 keyframes are rendered from a
      numpy-seeded map at bench_mapping's poses, where bench_mapping uses
-     random images): both slab kernels at n_img 8 against their twins, the
-     batched relayout at (8, 131072, 16), and the roofline probe kernel for
-     each op against its twin;
+     random images): both slab kernels at n_img 8 against their twins (and
+     phase 3's bit-identity checks and live-chunk line), the batched
+     relayout at (8, 131072, 16), and the roofline probe kernel for each
+     op against its twin;
   7. the mapping path, from a map like phase 6's but with opacity logits
      N(2.5, 1) (PATH_OPACITY_SHIFT: the densify event prunes opacity below
      0.7, 80% of an N(0, 1) map): a MapperState starts from a perturbed
@@ -39,9 +46,14 @@ Phases, one line each; any failure propagates and exits non-zero:
      span, ms per mapping iteration (median of 5 spans of 8), a profiler
      breakdown of one span, the live pairs under both opacity
      distributions, each kernel's time at the mapping shapes beside its
-     twin, the library call and its bound, the probe's ns per step for fma
-     / exp / log1p / div (the roofline probe's main path) and the slab
-     kernels' measured-rate floors at both widths;
+     twin, the library call and its bound (for the slab kernels also
+     bound_log_ms, the bound on the log-space count of earlier PRs), at
+     both shapes an A/B of the tile order net of its own launch (order +
+     forward + backward against the pair in tile-id order), the probe's ns
+     per step for fma / exp / log1p / div (the roofline probe's main path)
+     and the slab kernels' measured-rate floors at both widths, for the
+     twins' log-space work and the kernels' linear-T work, each beside its
+     share of the kernel's time;
 then the kernels' JSON line (each row's `launches` is the sum of the
 per-path counts beside it; its times, bound and error are at the mapping
 shapes, or the probe's) and, last, {"ok": true, "device": {...}}.
@@ -71,10 +83,21 @@ import warnings
 
 H100_FP32_OPS = 67e12    # float32 outside the tensor cores, op/s
 H100_HBM_BYTES = 3.35e12  # B/s
-# float32 operations per live (pixel, slot) pair, counted from
-# csrc/composite.cu with each expf / log1pf as one operation:
-#   forward:  dx, dy 2; power 9; clamp + expf 2; alpha_raw, tests, min 4;
-#             Tk 2; w 1; acc 9; log1pf + running sum 2       = 31
+# float32 operations per (pixel, slot) pair, each expf, log1pf or divide as
+# one operation and an fma as two (as the peak rate counts it).
+# The slab kernels' own work (bound_ms). Every live pair pays for its alpha;
+# the rest runs only on the pairs of a (warp, slot) with some nonzero alpha
+# (roofline.active_warp_slots), as the kernels skip the others:
+#   alpha:    dx, dy 2; power 9; clamp + expf 2; alpha_raw, tests, min 4 = 17
+#   forward:  w 1; 4 fma + 1 add 9; 1 - alpha, the T product 2          = 12
+#   backward: w 1; g 8; prefix 2; 1 - alpha 1; A - prefix, divide,
+#             dalpha 4; mask, dpower 3; dp dx 1; moments 6; w g_c 8;
+#             the T product 1; the slot's 10 gradients and reduce-scatter
+#             adds over PX = 4 pixels 6                                  = 41
+ALPHA_OPS, FWD_REST_OPS, BWD_REST_OPS = 17, 12, 41
+# The log-space count on every live pair (the plain twins' and the TPU
+# kernels' work), printed as bound_log_ms so rows compare with earlier PRs:
+#   forward:  alpha 17; Tk 2; w 1; acc 9; log1pf + running sum 2 = 31
 #   backward: the forward's alpha, Tk, w and log T terms 20; g 8;
 #             wg, prefixes, S 4; dalpha 4; mask, dpower 3; 10 per-slot
 #             gradients 22; their 10-value warp sums ~2      = 63
@@ -183,16 +206,97 @@ def device_profile(fn, iters: int, top: int = 8) -> dict:
     }
 
 
-def time_kernel(kfn, pfn, lfn, ops: float, nbytes: float, plain_reps: int = 2) -> dict:
+def time_kernel(kfn, pfn, lfn, ops: float, nbytes: float, plain_reps: int = 2,
+                log_ops: float | None = None) -> dict:
     """A kernel's device time (CUDA-graph replay of 20 launches) beside its
     plain twin's, the library call's where there is one, and its bound:
-    the larger of ops at the float32 peak and bytes at the HBM rate."""
+    the larger of ops at the float32 peak and bytes at the HBM rate; with
+    `log_ops`, also bound_log_ms, the same bound on the log-space count."""
     bound_ops, bound_bytes = ops / H100_FP32_OPS * 1e3, nbytes / H100_HBM_BYTES * 1e3
-    return {"ms": cuda_ms(kfn, 20, graph=True),
-            "plain_ms": cuda_ms(pfn, plain_reps, warmup=1),
-            "library_ms": cuda_ms(lfn, 20, graph=True) if lfn else None,
-            "bound_ms": max(bound_ops, bound_bytes),
-            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes"}
+    t = {"ms": cuda_ms(kfn, 20, graph=True),
+         "plain_ms": cuda_ms(pfn, plain_reps, warmup=1),
+         "library_ms": cuda_ms(lfn, 20, graph=True) if lfn else None,
+         "bound_ms": max(bound_ops, bound_bytes),
+         "bound_by": "operations" if bound_ops >= bound_bytes else "bytes"}
+    if log_ops is not None:
+        t["bound_log_ms"] = max(log_ops / H100_FP32_OPS * 1e3, bound_bytes)
+    return t
+
+
+def slab_checks(args, order, rcfg, baux, K: int, shape: str) -> None:
+    """The slab kernels' bit-identity checks on one workload (args =
+    (feats, pstart, counts)): the two forward variants' images, two
+    slab_bwd launches, and the tile order against its twin; then the host
+    syncs of one tile order + forward + backward, which must be none."""
+    import torch
+    from monogs_torch.ops import kernels, tile_raster
+
+    out_hot, _ = kernels.slab_fwd(*args, order, rcfg, K, False)
+    out_touched, _ = kernels.slab_fwd(*args, order, rcfg, K, True)
+    d1 = kernels.slab_bwd(*args, order, baux, rcfg)
+    d2 = kernels.slab_bwd(*args, order, baux, rcfg)
+    order_exact = bool(torch.equal(order, tile_raster._tile_order_plain(args[2])))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            o = kernels.tile_order(args[2])
+            kernels.slab_fwd(*args, o, rcfg, K, False)
+            kernels.slab_bwd(*args, o, baux, rcfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+    torch.cuda.synchronize()
+    images_equal, bwd_equal = bool(torch.equal(out_hot, out_touched)), bool(torch.equal(d1, d2))
+    line("check", shape=shape, fwd_variants_bit_identical=images_equal,
+         bwd_launches_bit_identical=bwd_equal, tile_order_bit_exact=order_exact,
+         host_syncs_in_slab_launches=syncs)
+    require(images_equal and bwd_equal and order_exact and syncs == 0,
+            f"a slab bit-identity or no-sync check failed at the {shape} shape")
+
+
+def tiles_line(shape: str, chunks, counts, warp_slots: dict) -> None:
+    """The tiles' live chunks (roofline.live_chunks) beside their padded
+    chunk counts: the spread the heaviest-first tile order works on; and
+    the share of (warp, slot) pairs with some nonzero alpha
+    (roofline.active_warp_slots): the kernels skip the rest."""
+    import torch
+    from monogs_torch.ops.binning import CHUNK
+
+    c = chunks.to(torch.float64)
+    padded = ((counts.to(torch.int64) + CHUNK - 1) // CHUNK).to(torch.float64)
+    line("tiles", shape=shape, tiles=c.numel(), live_chunks_max=int(c.max()),
+         live_chunks_p99=float(torch.quantile(c, 0.99)), live_chunks_mean=float(c.mean()),
+         padded_chunks_max=int(padded.max()), padded_chunks_mean=float(padded.mean()),
+         empty_tiles=int((counts == 0).sum()),
+         active_warp_slot_share=warp_slots["active"] / max(warp_slots["total"], 1))
+
+
+def order_ab(args, rcfg, baux, K: int, shape: str, smi: str) -> None:
+    """CUDA-event A/B of the tile order, net of its own launch: the tile
+    order alone, then the forward + backward pair as composite_slab runs it
+    (one heaviest-first order built for both) against the same pair in
+    tile-id order with no order launch, timed in turns (A, B, B, A; graph
+    replay of 20 repetitions each)."""
+    import torch
+    from monogs_torch.ops import kernels
+
+    ids = torch.arange(args[2].shape[0], dtype=torch.int32, device=args[2].device)
+
+    def pair(o):
+        kernels.slab_fwd(*args, o, rcfg, K, False)
+        kernels.slab_bwd(*args, o, baux, rcfg)
+
+    runs = {"heaviest_first": lambda: pair(kernels.tile_order(args[2])),
+            "id_order": lambda: pair(ids)}
+    t = {k: [] for k in runs}
+    for which in ("heaviest_first", "id_order", "id_order", "heaviest_first"):
+        t[which].append(cuda_ms(runs[which], 20, graph=True))
+    line("ab", shape=shape, kernel="tile_order+slab_fwd+slab_bwd", what="tile order",
+         tile_order_ms=cuda_ms(lambda: kernels.tile_order(args[2]), 20, graph=True),
+         heaviest_first_ms=statistics.mean(t["heaviest_first"]),
+         id_order_ms=statistics.mean(t["id_order"]), card=repr(smi))
 
 
 def build_mapping_state(dev, opacity_shift: float = 0.0):
@@ -303,7 +407,8 @@ def mapping_phases(dev, smi: str, track_launches: dict, track_slab) -> list:
 
     # 6. Kernels at the mapping widths against their twins.
     bins, feats, pstart, counts = window_slab(state_t, intr, cfg)
-    args = (feats, pstart, counts, rcfg)
+    args = (feats, pstart, counts)
+    order = kernels.tile_order(counts)
     T = rcfg.num_tiles
 
     def fwd_plain(touched):
@@ -318,8 +423,8 @@ def mapping_phases(dev, smi: str, track_launches: dict, track_slab) -> list:
                                                baux[w * T:(w + 1) * T], rcfg)
                    for w in range(WIN))
 
-    out_k, _ = kernels.slab_fwd(*args, K, False)
-    out_kt, touched_k = kernels.slab_fwd(*args, K, True)
+    out_k, _ = kernels.slab_fwd(*args, order, rcfg, K, False)
+    out_kt, touched_k = kernels.slab_fwd(*args, order, rcfg, K, True)
     out_p, touched_p = fwd_plain(True)
     torch.cuda.synchronize()
     err_fwd, ok1 = fwd_err(out_k, out_p)
@@ -333,13 +438,22 @@ def mapping_phases(dev, smi: str, track_launches: dict, track_slab) -> list:
     g_out = torch.randn(out_p.shape, generator=torch.Generator(dev).manual_seed(5),
                         device=dev)
     baux = tile_raster.bwd_aux(out_p, g_out)
-    d_k = kernels.slab_bwd(*args[:3], baux, rcfg)
+    d_k = kernels.slab_bwd(*args, order, baux, rcfg)
     d_p = bwd_plain(baux)
     torch.cuda.synchronize()
     err_bwd, ok = bwd_err(d_k, d_p)
     line("check", kernel="slab_bwd", shape="mapping", n_img=WIN, max_abs_err=err_bwd,
          max_abs_plain=float(d_p.abs().max()))
     require(ok, "slab_bwd disagrees with its twin at n_img 8")
+    slab_checks(args, order, rcfg, baux, K, "mapping")
+    m_chunks = torch.cat([roofline.live_chunks(feats, pstart[w * T:(w + 1) * T],
+                                               counts[w * T:(w + 1) * T], rcfg)
+                          for w in range(WIN)])
+    m_slots = [roofline.active_warp_slots(feats, pstart[w * T:(w + 1) * T],
+                                          counts[w * T:(w + 1) * T], rcfg)
+               for w in range(WIN)]
+    m_slots = {k: sum(d[k] for d in m_slots) for k in ("active", "total")}
+    tiles_line("mapping", m_chunks, counts, m_slots)
     xw = torch.randn((WIN, M_CAP, 16), generator=torch.Generator(dev).manual_seed(6),
                      device=dev)
     relayout_exact = bool(torch.equal(kernels.rows_to_channels(xw),
@@ -364,7 +478,7 @@ def mapping_phases(dev, smi: str, track_launches: dict, track_slab) -> list:
     _, aux0 = tm.mapping_step(state0, intr, cfg)
     loss0 = float(aux0.loss)
     n0 = int(state0.gmap.num_active)
-    path = (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels)
+    path = (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels, kernels.tile_order)
     for k in path:
         k.launches = 0
     t0 = time.perf_counter()
@@ -393,8 +507,10 @@ def mapping_phases(dev, smi: str, track_launches: dict, track_slab) -> list:
     require(n2 != n1, "the active count did not change at densify")
     require(map_launches["slab_fwd"] >= M_ITERS + 2
             and map_launches["slab_bwd"] >= M_ITERS
-            and map_launches["rows_to_channels"] >= M_ITERS,
-            "a kernel of the mapping path did not launch on it")
+            and map_launches["rows_to_channels"] >= M_ITERS
+            and map_launches["tile_order"] == map_launches["slab_fwd"],
+            "a kernel of the mapping path did not launch on it (or the tile order "
+            "was not built once per forward)")
 
     # 8. Mapping timing, on phase 6's state: first the host syncs of one
     # span (the "synchronizing CUDA operation" warnings only; the debug
@@ -439,34 +555,38 @@ def mapping_phases(dev, smi: str, track_launches: dict, track_slab) -> list:
         for op, op_ms, calls in prof["top"]:
             print(f"  device: {op_ms:.4f} ms/iter  {calls:7.2f} calls/iter  {op}")
 
-    pairs = window_pairs(feats, pstart, counts, rcfg)
+    pairs = int(m_chunks.sum()) * roofline.CHUNK * rcfg.pixels
     pairs_path = window_pairs(*window_slab(state0, intr, cfg)[1:], rcfg)
     line("pairs", shape="mapping", live_pairs_timed=pairs, opacity_logits_timed="N(0,1)",
          live_pairs_event_path=pairs_path,
          opacity_logits_event_path=f"N({PATH_OPACITY_SHIFT},1)")
+    active = m_slots["active"] * roofline.WARP_PIXELS
     feat_bytes = 10 * 4 * pairs // rcfg.pixels
     rows = {
         "slab_fwd": ("cuda", "monogs_torch/csrc/composite.cu",
                      "monogs_tpu/ops/tile_raster.py:284 (_slab_fwd_kernel, via _fwd_slab :467)",
-                     lambda: kernels.slab_fwd(*args, K, False), lambda: fwd_plain(False),
-                     None, FWD_OPS_PER_PAIR * pairs, feat_bytes + out_p.numel() * 4,
-                     err_fwd),
+                     lambda: kernels.slab_fwd(*args, order, rcfg, K, False),
+                     lambda: fwd_plain(False), None,
+                     ALPHA_OPS * pairs + FWD_REST_OPS * active, FWD_OPS_PER_PAIR * pairs,
+                     feat_bytes + out_p.numel() * 4, err_fwd),
         "slab_bwd": ("cuda", "monogs_torch/csrc/composite.cu",
                      "monogs_tpu/ops/tile_raster.py:355 (_slab_bwd_kernel, via _bwd_slab :517)",
-                     lambda: kernels.slab_bwd(*args[:3], baux, rcfg), lambda: bwd_plain(baux),
-                     None, BWD_OPS_PER_PAIR * pairs, 2 * feat_bytes + baux.numel() * 4,
-                     err_bwd),
+                     lambda: kernels.slab_bwd(*args, order, baux, rcfg),
+                     lambda: bwd_plain(baux), None,
+                     ALPHA_OPS * pairs + BWD_REST_OPS * active, BWD_OPS_PER_PAIR * pairs,
+                     2 * feat_bytes + baux.numel() * 4, err_bwd),
         "rows_to_channels": ("triton", "monogs_torch/csrc/relayout.py",
                              "monogs_tpu/ops/tile_raster.py:622 (rows_to_channels / "
                              "_relayout_kernel :618, vmapped in _pfw_bwd :792)",
                              lambda: kernels.rows_to_channels(xw),
                              lambda: tile_raster._rows_to_channels_plain(xw),
-                             lambda: xw.transpose(1, 2).contiguous(), 0,
+                             lambda: xw.transpose(1, 2).contiguous(), 0, None,
                              2 * xw.numel() * 4, 0.0),
     }
     report = []
-    for kname, (route, source, replaces, kfn, pfn, lfn, ops, nbytes, err) in rows.items():
-        t = time_kernel(kfn, pfn, lfn, ops, nbytes)
+    for kname, (route, source, replaces, kfn, pfn, lfn, ops, log_ops, nbytes,
+                err) in rows.items():
+        t = time_kernel(kfn, pfn, lfn, ops, nbytes, log_ops=log_ops)
         report.append({"name": kname, "route": route, "source": source,
                        "replaces": replaces,
                        "launches": track_launches[kname] + map_launches[kname],
@@ -476,8 +596,9 @@ def mapping_phases(dev, smi: str, track_launches: dict, track_slab) -> list:
         line("kernel", shape="mapping", name=kname, **t,
              launches_per_mapping_iter=per_iter[kname], card=repr(smi))
     line("kernel", shape="mapping", name="slab_fwd(touched)",
-         ms=cuda_ms(lambda: kernels.slab_fwd(*args, K, True), 20, graph=True),
-         live_pairs=pairs)
+         ms=cuda_ms(lambda: kernels.slab_fwd(*args, order, rcfg, K, True), 20, graph=True),
+         live_pairs=pairs, active_pairs=active)
+    order_ab(args, rcfg, baux, K, "mapping", smi)
 
     # The roofline probe's main path: the four rates at the probe shape.
     kernels.op_microbench.launches = 0
@@ -487,11 +608,15 @@ def mapping_phases(dev, smi: str, track_launches: dict, track_slab) -> list:
          shape=roofline.PROBE_SHAPE, n_rep=roofline.PROBE_REP,
          lanes=roofline.PROBE_LANES, launches=probe_launches, card=repr(smi))
     require(probe_launches == 4 * len(roofline.OPS), "the probe kernel did not launch")
-    tf, tb, tr = track_slab
-    t_pairs = roofline.slab_pairs(tf, tb.pstart_blk, tb.counts, tr)["live"]
-    for shape, n in (("tracking", t_pairs), ("mapping", pairs)):
-        line("floor", shape=shape, live_pairs=n, **roofline.floors_ms(n, rates),
-             card=repr(smi))
+    t_pairs, t_active, track_ms = track_slab
+    map_ms = {r["name"]: r["ms"] for r in report}
+    for shape, n, n_active, ms in (("tracking", t_pairs, t_active, track_ms),
+                                   ("mapping", pairs, active, map_ms)):
+        for mix in roofline.MIXES:
+            f = roofline.floors_ms(n, rates, mix, n_active)
+            line("floor", shape=shape, mix=mix, live_pairs=n, active_pairs=n_active, **f,
+                 fwd_share=f["floor_fwd_ms"] / ms["slab_fwd"],
+                 bwd_share=f["floor_bwd_ms"] / ms["slab_bwd"], card=repr(smi))
     steps = xp.numel() * roofline.PROBE_REP * roofline.PROBE_LANES
     t = time_kernel(lambda: kernels.op_microbench(xp, "exp", roofline.PROBE_REP,
                                                   roofline.PROBE_LANES),
@@ -555,6 +680,16 @@ def main() -> int:
     for ln in kernels.build_log("composite").splitlines():
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("  ptxas:", ln.strip().removeprefix("ptxas info    : "))
+    spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                            kernels.build_log("composite")))
+    shapes = {}
+    for name in kernels.SLAB_KERNELS:
+        shapes[name] = kernels.slab_kernel_info(name, 32)
+        line("launch", kernel=name, tile=32, **shapes[name])
+    line("build", composite_spill_bytes=spills)
+    require(spills == 0 and all(v["local_bytes"] == 0 for v in shapes.values()),
+            "a slab kernel spills registers")
+    require(shapes["slab_bwd"]["ctas_per_sm"] >= 2, "slab_bwd runs under 2 blocks an SM")
     mb = kernels.build_log("microbench")
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", mb)]
     line("build", microbench_variants=len(regs), registers=f"{min(regs)}-{max(regs)}",
@@ -569,10 +704,11 @@ def main() -> int:
     eye, z3 = torch.eye(3, device=dev), torch.zeros(3, device=dev)
     feats, bins, slab_cfg = roofline.tracking_slab(dev, SEED)
     require(slab_cfg == rcfg and K == 2048, "tracking_slab is not the tracker's workload")
-    args = (feats, bins.pstart_blk, bins.counts, rcfg)
-    out_k, _ = kernels.slab_fwd(*args, K, False)
-    out_kt, touched_k = kernels.slab_fwd(*args, K, True)
-    out_p, touched_p = tile_raster._fwd_slab_plain(*args, K, True)
+    args = (feats, bins.pstart_blk, bins.counts)
+    order = kernels.tile_order(bins.counts)
+    out_k, _ = kernels.slab_fwd(*args, order, rcfg, K, False)
+    out_kt, touched_k = kernels.slab_fwd(*args, order, rcfg, K, True)
+    out_p, touched_p = tile_raster._fwd_slab_plain(*args, rcfg, K, True)
     torch.cuda.synchronize()
     err_fwd, ok1 = fwd_err(out_k, out_p)
     err_fwdt, ok2 = fwd_err(out_kt, out_p)
@@ -585,13 +721,17 @@ def main() -> int:
     g_out = torch.randn(out_p.shape, generator=torch.Generator(dev).manual_seed(1),
                         device=dev)
     baux = tile_raster.bwd_aux(out_p, g_out)
-    d_k = kernels.slab_bwd(*args[:3], baux, rcfg)
-    d_p = tile_raster._bwd_slab_plain(*args[:3], baux, rcfg)
+    d_k = kernels.slab_bwd(*args, order, baux, rcfg)
+    d_p = tile_raster._bwd_slab_plain(*args, baux, rcfg)
     torch.cuda.synchronize()
     err_bwd, ok = bwd_err(d_k, d_p)
     line("check", kernel="slab_bwd", max_abs_err=err_bwd,
          max_abs_plain=float(d_p.abs().max()))
     require(ok, "slab_bwd disagrees with its plain twin")
+    slab_checks(args, order, rcfg, baux, K, "tracking")
+    t_chunks = roofline.live_chunks(*args, rcfg)
+    t_slots = roofline.active_warp_slots(*args, rcfg)
+    tiles_line("tracking", t_chunks, bins.counts, t_slots)
 
     x = torch.randn((N, 16), generator=torch.Generator(dev).manual_seed(2),
                     device=dev)
@@ -619,14 +759,15 @@ def main() -> int:
     pstart2 = torch.cat([views[0][0].pstart_blk,
                          views[1][0].pstart_blk + E_cap // 512])
     counts2 = torch.cat([v[0].counts for v in views])
-    args2 = (feats2, pstart2, counts2, s_rcfg)
-    o2k, t2k = kernels.slab_fwd(*args2, 512, True)
-    o2p, t2p = tile_raster._fwd_slab_plain(*args2, 512, True)
+    args2 = (feats2, pstart2, counts2)
+    order2 = kernels.tile_order(counts2)
+    o2k, t2k = kernels.slab_fwd(*args2, order2, s_rcfg, 512, True)
+    o2p, t2p = tile_raster._fwd_slab_plain(*args2, s_rcfg, 512, True)
     g2 = torch.randn(o2p.shape, generator=torch.Generator(dev).manual_seed(3),
                      device=dev)
     b2 = tile_raster.bwd_aux(o2p, g2)
-    d2k = kernels.slab_bwd(*args2[:3], b2, s_rcfg)
-    d2p = tile_raster._bwd_slab_plain(*args2[:3], b2, s_rcfg)
+    d2k = kernels.slab_bwd(*args2, order2, b2, s_rcfg)
+    d2p = tile_raster._bwd_slab_plain(*args2, b2, s_rcfg)
     torch.cuda.synchronize()
     e2f, ok2f = fwd_err(o2k, o2p)
     e2b, ok2b = bwd_err(d2k, d2p)
@@ -653,7 +794,9 @@ def main() -> int:
             pose[:3, :3], pose[:3, 3] = R_gt, t_gt
             frames.append(make_frame(i, gt.rgb, gt.depth, pose, device=dev))
     active = torch.ones(N, dtype=torch.bool, device=dev)
-    for k in (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels):
+    track_path = (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels,
+                  kernels.tile_order)
+    for k in track_path:
         k.launches = 0
     n_iters = 0
     for i, fr in enumerate(frames):
@@ -676,13 +819,14 @@ def main() -> int:
                 and bool(torch.isfinite(res.host_stats).all()),
                 "non-finite tracking output")
         require(e1[0] < e0[0] and e1[1] < e0[1], "pose error did not shrink")
-    launches = {k.__name__: k.launches for k in
-                (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels)}
+    launches = {k.__name__: k.launches for k in track_path}
     line("launches", iterations=n_iters, **launches)
     require(launches["slab_fwd"] >= n_iters + len(frames)
             and launches["slab_bwd"] >= n_iters
-            and launches["rows_to_channels"] >= n_iters,
-            "a kernel of the tracking path did not launch on it")
+            and launches["rows_to_channels"] >= n_iters
+            and launches["tile_order"] == launches["slab_fwd"],
+            "a kernel of the tracking path did not launch on it (or the tile order "
+            "was not built once per forward)")
 
     # 5. Timing.
     g = torch.Generator(dev).manual_seed(4)
@@ -714,26 +858,33 @@ def main() -> int:
         for op, op_ms, calls in prof["top"]:
             print(f"  device: {op_ms:.4f} ms/iter  {calls:7.2f} calls/iter  {op}")
 
-    pairs = roofline.slab_pairs(feats, bins.pstart_blk, bins.counts, rcfg)["live"]
+    pairs = int(t_chunks.sum()) * roofline.CHUNK * rcfg.pixels
+    active = t_slots["active"] * roofline.WARP_PIXELS
     feat_bytes = 10 * 4 * pairs // rcfg.pixels
     track_rows = {
-        "slab_fwd": (lambda: kernels.slab_fwd(*args, K, False),
-                     lambda: tile_raster._fwd_slab_plain(*args, K, False), None,
-                     FWD_OPS_PER_PAIR * pairs, feat_bytes + out_p.numel() * 4),
-        "slab_bwd": (lambda: kernels.slab_bwd(*args[:3], baux, rcfg),
-                     lambda: tile_raster._bwd_slab_plain(*args[:3], baux, rcfg), None,
-                     BWD_OPS_PER_PAIR * pairs, 2 * feat_bytes + baux.numel() * 4),
+        "slab_fwd": (lambda: kernels.slab_fwd(*args, order, rcfg, K, False),
+                     lambda: tile_raster._fwd_slab_plain(*args, rcfg, K, False), None,
+                     ALPHA_OPS * pairs + FWD_REST_OPS * active, FWD_OPS_PER_PAIR * pairs,
+                     feat_bytes + out_p.numel() * 4),
+        "slab_bwd": (lambda: kernels.slab_bwd(*args, order, baux, rcfg),
+                     lambda: tile_raster._bwd_slab_plain(*args, baux, rcfg), None,
+                     ALPHA_OPS * pairs + BWD_REST_OPS * active, BWD_OPS_PER_PAIR * pairs,
+                     2 * feat_bytes + baux.numel() * 4),
         "rows_to_channels": (lambda: kernels.rows_to_channels(x),
                              lambda: tile_raster._rows_to_channels_plain(x),
-                             lambda: x.t().contiguous(), 0, 2 * x.numel() * 4),
+                             lambda: x.t().contiguous(), 0, None, 2 * x.numel() * 4),
     }
-    for kname, (kfn, pfn, lfn, ops, nbytes) in track_rows.items():
-        t = time_kernel(kfn, pfn, lfn, ops, nbytes)
+    track_ms = {}
+    for kname, (kfn, pfn, lfn, ops, log_ops, nbytes) in track_rows.items():
+        t = time_kernel(kfn, pfn, lfn, ops, nbytes, log_ops=log_ops)
+        track_ms[kname] = t["ms"]
         line("kernel", shape="tracking", name=kname, **t, card=repr(smi))
     line("kernel", shape="tracking", name="slab_fwd(touched)",
-         ms=cuda_ms(lambda: kernels.slab_fwd(*args, K, True), 20, graph=True),
-         live_pairs=pairs, total_s=f"{time.perf_counter() - t_start:.1f}")
-    track_slab = (feats, bins, rcfg)
+         ms=cuda_ms(lambda: kernels.slab_fwd(*args, order, rcfg, K, True), 20, graph=True),
+         live_pairs=pairs, active_pairs=active,
+         total_s=f"{time.perf_counter() - t_start:.1f}")
+    order_ab(args, rcfg, baux, K, "tracking", smi)
+    track_slab = (pairs, active, track_ms)
 
     # 6-8. The mapping path, its kernels and the roofline probe.
     report = mapping_phases(dev, smi, launches, track_slab)

@@ -2,6 +2,7 @@
 
     slab_fwd          csrc/composite.cu   (CUDA C++, sm_90a, ctypes)
     slab_bwd          csrc/composite.cu   (CUDA C++, sm_90a, ctypes)
+    tile_order        csrc/composite.cu   (the slab kernels' tile order)
     rows_to_channels  csrc/relayout.py    (Triton; (N, C) or batched (B, N, C))
     op_microbench     csrc/microbench.cu  (CUDA C++, sm_90a, ctypes)
 
@@ -106,10 +107,14 @@ def build_log(name: str = "composite") -> str:
 def _composite_lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_all(("composite",))["composite"])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.slab_fwd.argtypes = [ptr] * 5 + [i32] * 9 + [ptr]
+    lib.slab_fwd.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
     lib.slab_fwd.restype = i32
-    lib.slab_bwd.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.slab_bwd.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.slab_bwd.restype = i32
+    lib.slab_tile_order.argtypes = [ptr, ptr, i32, ptr]
+    lib.slab_tile_order.restype = i32
+    lib.slab_kernel_info.argtypes = [i32, i32, ptr]
+    lib.slab_kernel_info.restype = i32
     return lib
 
 
@@ -143,6 +148,13 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int):
                          f"got {tuple(t.shape)} {t.dtype}")
 
 
+# Pixels per thread of the slab kernels (PX in csrc/composite.cu): a tile of
+# P pixels runs P / SLAB_PX threads, which must be a multiple of 32, at
+# most 256 (tile 16: 64 threads, tile 32: 256).
+SLAB_PX = 4
+SLAB_KERNELS = ("slab_fwd", "slab_fwd(touched)", "slab_bwd")
+
+
 def _check_slab(feats_cm, pstart_blk, counts, cfg):
     _check(feats_cm, "feats_cm", torch.float32, 3)
     _check(pstart_blk, "pstart_blk", torch.int32, 1)
@@ -154,52 +166,98 @@ def _check_slab(feats_cm, pstart_blk, counts, cfg):
                          f"got {tuple(feats_cm.shape)}")
     if counts.shape != pstart_blk.shape:
         raise ValueError("pstart_blk and counts differ in shape")
-    if P % 32 or P > 1024:
-        raise ValueError(f"tile_size {cfg.tile_size}: the kernels take "
-                         "tile_size^2 a multiple of 32, at most 1024")
+    if cfg.tile_size % SLAB_PX or (P // SLAB_PX) % 32 or P > 1024:
+        raise ValueError(f"tile_size {cfg.tile_size}: the kernels run tile_size^2 / "
+                         f"{SLAB_PX} threads a tile, which must be a multiple of 32, "
+                         "at most 256 (tile 16 or 32)")
 
 
-def slab_fwd(feats_cm, pstart_blk, counts, cfg, K: int, emit_touched: bool):
-    """Forward compositing kernel: -> (out (Tt, P, 8), touched (Tt, K))."""
+def tile_order(counts: torch.Tensor) -> torch.Tensor:
+    """Tile-order kernel: (Tt,) entry counts -> (Tt,) int32 tile ids by
+    descending chunk count (capped at 63), ties in id order; the slab
+    kernels' block b takes tile order[b]."""
+    _check(counts, "counts", torch.int32, 1)
+    order = torch.empty_like(counts)
+    if counts.shape[0]:
+        with torch.cuda.device(counts.device):
+            rc = _composite_lib().slab_tile_order(
+                counts.data_ptr(), order.data_ptr(), counts.shape[0],
+                torch.cuda.current_stream(counts.device).cuda_stream)
+        if rc:
+            raise RuntimeError(f"tile_order launch failed: CUDA error {rc}")
+        tile_order.launches += 1
+    return order
+
+
+def _check_order(order, counts):
+    _check(order, "order", torch.int32, 1)
+    if order.shape != counts.shape:
+        raise ValueError("order and counts differ in shape")
+
+
+def slab_fwd(feats_cm, pstart_blk, counts, order, cfg, K: int, emit_touched: bool):
+    """Forward compositing kernel: -> (out (Tt, P, 8), touched (Tt, K)).
+    `order` (Tt,) int32 is the order the thread blocks take the tiles in
+    (tile_order(counts), or any permutation: the outputs do not depend on
+    it)."""
     _check_slab(feats_cm, pstart_blk, counts, cfg)
+    _check_order(order, counts)
     if K % CHUNK:
         raise ValueError(f"tile_capacity {K} is not a multiple of {CHUNK}")
     Tt, dev = pstart_blk.shape[0], feats_cm.device
     out = torch.empty((Tt, cfg.pixels, 8), dtype=torch.float32, device=dev)
     touched = (torch.empty if emit_touched else torch.zeros)(
         (Tt, K), dtype=torch.int32, device=dev)
+    if Tt == 0:
+        return out, touched
     with torch.cuda.device(dev):
         rc = _composite_lib().slab_fwd(
             feats_cm.data_ptr(), pstart_blk.data_ptr(), counts.data_ptr(),
-            out.data_ptr(), touched.data_ptr(), Tt, feats_cm.shape[2],
-            cfg.num_tiles, cfg.tiles_x, cfg.tile_size, cfg.img_w, cfg.img_h,
-            K, int(emit_touched), torch.cuda.current_stream(dev).cuda_stream)
+            order.data_ptr(), out.data_ptr(), touched.data_ptr(), Tt,
+            feats_cm.shape[2], cfg.num_tiles, cfg.tiles_x, cfg.tile_size, cfg.img_w,
+            cfg.img_h, K, int(emit_touched), torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"slab_fwd launch failed: CUDA error {rc}")
-    slab_fwd.launches += int(Tt > 0)
+    slab_fwd.launches += 1
     return out, touched
 
 
-def slab_bwd(feats_cm, pstart_blk, counts, baux, cfg):
+def slab_bwd(feats_cm, pstart_blk, counts, order, baux, cfg):
     """Backward compositing kernel: -> dfeats_cm shaped like feats_cm (every
-    column outside the live chunks stays zero)."""
+    column outside the live chunks stays zero); `order` as in slab_fwd."""
     _check_slab(feats_cm, pstart_blk, counts, cfg)
+    _check_order(order, counts)
     _check(baux, "baux", torch.float32, 3)
     Tt, dev = pstart_blk.shape[0], feats_cm.device
-    if baux.shape != (Tt, 8, cfg.pixels):
-        raise ValueError(f"baux: need {(Tt, 8, cfg.pixels)}, "
+    if baux.shape != (Tt, 8, cfg.pixels) or baux.data_ptr() % 16:
+        raise ValueError(f"baux: need {(Tt, 8, cfg.pixels)}, 16-byte aligned, "
                          f"got {tuple(baux.shape)}")
     dfeats = torch.zeros_like(feats_cm)
+    if Tt == 0:
+        return dfeats
     with torch.cuda.device(dev):
         rc = _composite_lib().slab_bwd(
             feats_cm.data_ptr(), pstart_blk.data_ptr(), counts.data_ptr(),
-            baux.data_ptr(), dfeats.data_ptr(), Tt, feats_cm.shape[2],
-            cfg.num_tiles, cfg.tiles_x, cfg.tile_size, cfg.img_w, cfg.img_h,
-            torch.cuda.current_stream(dev).cuda_stream)
+            order.data_ptr(), baux.data_ptr(), dfeats.data_ptr(), Tt,
+            feats_cm.shape[2], cfg.num_tiles, cfg.tiles_x, cfg.tile_size, cfg.img_w,
+            cfg.img_h, torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"slab_bwd launch failed: CUDA error {rc}")
-    slab_bwd.launches += int(Tt > 0)
+    slab_bwd.launches += 1
     return dfeats
+
+
+def slab_kernel_info(name: str, tile_size: int = 32) -> dict:
+    """Launch shape of a slab kernel (one of SLAB_KERNELS) at `tile_size`:
+    threads, PX, blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    registers, local (spill) bytes and static shared bytes a block."""
+    threads = tile_size * tile_size // SLAB_PX
+    info = (ctypes.c_int * 5)()
+    rc = _composite_lib().slab_kernel_info(SLAB_KERNELS.index(name), threads, info)
+    if rc:
+        raise RuntimeError(f"slab_kernel_info({name}) failed: CUDA error {rc}")
+    return {"threads": threads, "px": info[4], "ctas_per_sm": info[0],
+            "registers": info[1], "local_bytes": info[2], "smem_bytes": info[3]}
 
 
 RELAYOUT_BLOCK = 512
@@ -257,5 +315,6 @@ def op_microbench(x: torch.Tensor, op: str, n_rep: int,
 
 slab_fwd.launches = 0
 slab_bwd.launches = 0
+tile_order.launches = 0
 rows_to_channels.launches = 0
 op_microbench.launches = 0

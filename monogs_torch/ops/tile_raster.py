@@ -27,10 +27,16 @@ hand-written Hopper kernel in ops/kernels.py and a plain PyTorch twin here:
     _bwd_slab  -> kernels.slab_bwd       (CUDA, csrc/composite.cu)
     rows_to_channels -> kernels.rows_to_channels (Triton, csrc/relayout.py;
                         (N, 16) or the window's batched (Wn, N, 16))
+`composite_slab` first launches kernels.tile_order (twin `_tile_order_plain`)
+once, for both slab kernels: it only sets the order their thread blocks
+take the tiles in.
 The dispatchers take the plain twin only for a CPU tensor; a CUDA tensor
-launches the kernel or raises. The plain twins keep the kernels' arithmetic
-exactly: in-chunk prefixes are sequential float32 sums (`_seq_prefix`), so
-on one device `touched` is bit-identical between a kernel and its twin.
+launches the kernel or raises. The plain twins keep the log-space
+arithmetic of the TPU kernels: in-chunk prefixes are sequential float32
+sums (`_seq_prefix`). The CUDA kernels compute alpha in the twins'
+operations, carry T as a running product, and carry the twins' log T only
+for the `touched` count, so on one device `touched` is bit-identical
+between a kernel and its twin and the images agree to float32 rounding.
 
 CPU determinism. In a fresh process the first float32 `torch.exp` that
 runs on several intra-op threads can return wrong values on one worker
@@ -292,35 +298,46 @@ def _bwd_slab_plain(feats_cm, pstart_blk, counts, baux, cfg: RasterConfig):
     return dflat.reshape(FEAT_ROWS, n_img, E_cap).permute(1, 0, 2).contiguous()
 
 
-def _fwd_slab(feats_cm, pstart_blk, counts, cfg: RasterConfig, K: int,
+def _tile_order_plain(counts: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the tile-order kernel: tile ids by descending chunk
+    count (capped at 63), ties in id order."""
+    key = torch.clamp_max((counts.to(torch.int64) + CHUNK - 1) // CHUNK, 63)
+    return torch.argsort(key, descending=True, stable=True).to(torch.int32)
+
+
+def _fwd_slab(feats_cm, pstart_blk, counts, order, cfg: RasterConfig, K: int,
               emit_touched: bool = True):
     if feats_cm.device.type == "cpu":
         return _fwd_slab_plain(feats_cm, pstart_blk, counts, cfg, K,
                                emit_touched)
-    return kernels.slab_fwd(feats_cm, pstart_blk, counts, cfg, K, emit_touched)
+    return kernels.slab_fwd(feats_cm, pstart_blk, counts, order, cfg, K,
+                            emit_touched)
 
 
-def _bwd_slab(feats_cm, pstart_blk, counts, baux, cfg: RasterConfig):
+def _bwd_slab(feats_cm, pstart_blk, counts, order, baux, cfg: RasterConfig):
     if feats_cm.device.type == "cpu":
         return _bwd_slab_plain(feats_cm, pstart_blk, counts, baux, cfg)
-    return kernels.slab_bwd(feats_cm, pstart_blk, counts, baux, cfg)
+    return kernels.slab_bwd(feats_cm, pstart_blk, counts, order, baux, cfg)
 
 
 class _CompositeSlab(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats_cm, pstart_blk, counts, cfg, K, emit_touched):
-        out, touched = _fwd_slab(feats_cm, pstart_blk, counts, cfg, K,
+        # The kernels' tile order, built once for the forward and the
+        # backward (the plain twins walk the tiles in id order).
+        order = None if feats_cm.device.type == "cpu" else kernels.tile_order(counts)
+        out, touched = _fwd_slab(feats_cm, pstart_blk, counts, order, cfg, K,
                                  emit_touched)
-        ctx.save_for_backward(feats_cm, pstart_blk, counts, out)
+        ctx.save_for_backward(feats_cm, pstart_blk, counts, order, out)
         ctx.cfg = cfg
         ctx.mark_non_differentiable(touched)
         return out, touched
 
     @staticmethod
     def backward(ctx, g_out, _g_touched):
-        feats_cm, pstart_blk, counts, out = ctx.saved_tensors
-        dfeats = _bwd_slab(feats_cm, pstart_blk, counts, bwd_aux(out, g_out),
-                           ctx.cfg)
+        feats_cm, pstart_blk, counts, order, out = ctx.saved_tensors
+        dfeats = _bwd_slab(feats_cm, pstart_blk, counts, order,
+                           bwd_aux(out, g_out), ctx.cfg)
         return dfeats, None, None, None, None, None
 
 

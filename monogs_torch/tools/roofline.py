@@ -14,10 +14,15 @@ scripts/bench_roofline.py).
    on given bins: `padded` is every pair of every chunk a tile owns (the
    TPU script's count), `live` stops each tile where all its pixels
    saturate, as the kernels do.
-3. `floors_ms` turns pairs into least times at the measured rates with the
-   port's own per-pair op mix (csrc/composite.cu): each transcendental or
-   divide at its probe's per-step time, each other float32 operation at
-   half the fma probe's (one fma step is a multiply and an add).
+3. `floors_ms` turns pairs into least times at the measured rates with a
+   per-pair op mix: each transcendental or divide at its probe's per-step
+   time, each other float32 operation at half the fma probe's (one fma
+   step is a multiply and an add). mix="log" is the log-space work of the
+   plain twins and the TPU kernels on every live pair; mix="linear" is
+   what the CUDA kernels of csrc/composite.cu run (a running product for
+   T): alpha, with its one expf, on every live pair, and the rest (the
+   backward's divide among it) only on the pairs of the (warp, slot)s that
+   `active_warp_slots` counts, as the kernels skip the others.
 
 The floors sit beside the published-peak bound that chip_smoke.py reports;
 they ignore memory and launch costs and assume the op classes do not
@@ -38,10 +43,25 @@ from ..ops.tile_raster import CHUNK, _SlabWalk, warm_cpu_math
 OPS = ("fma", "exp", "log1p", "div")
 PROBE_SHAPE = (256, 1024, 128)   # (blocks, P, C): the slab kernels' block
 PROBE_REP, PROBE_LANES = 512, 4
-# Per live (pixel, slot) pair, from csrc/composite.cu: transcendentals and
-# divides by name, every other float32 operation under "flop".
+# Per (pixel, slot) pair: transcendentals and divides by name, every other
+# float32 operation (an fma counts as one) under "flop".
+# Log space (the twins, the TPU kernels), every live pair: T = exp(log T +
+# excl) and log1p(-alpha) a pair.
 FWD_MIX = {"exp": 2, "log1p": 1, "flop": 28}
 BWD_MIX = {"exp": 2, "log1p": 1, "div": 1, "flop": 59}
+# Linear T (csrc/composite.cu). Every live pair pays for its alpha: dx, dy
+# 2; power 9; clamp 1 and expf; alpha_raw, tests, min 4. The rest runs only
+# on the pairs of a (warp, slot) with some nonzero alpha (`active_warp_slots`;
+# the kernels skip the others after one vote). Forward: w 1; 4 fma + 1 add;
+# 1 - alpha and the T product 2. Backward: w, 1 - alpha, the T product 3;
+# g 4; prefix, S 2; dalpha 1 and the divide; mask, dpower 3; the thread's
+# moments 9; the 10 gradients and the warp's reduce-scatter adds over PX = 4
+# pixels ~5.
+ALPHA_MIX = {"exp": 1, "flop": 16}
+FWD_REST_MIX = {"flop": 8}
+BWD_REST_MIX = {"div": 1, "flop": 27}
+MIXES = ("log", "linear")
+WARP_PIXELS = 128   # the pixels of one slab-kernel warp: 32 threads of PX = 4
 
 
 def _step(a: torch.Tensor, op: str, k: int) -> torch.Tensor:
@@ -100,31 +120,78 @@ def op_microbench(op: str, n_rep: int = PROBE_REP, blocks: int = PROBE_SHAPE[0],
     return start.elapsed_time(end) / reps * 1e6 / n
 
 
+def _walk(feats_cm, pstart_blk, counts, cfg):
+    """The twins' chunk walk: yields (live (Tt,), alpha (Tt, P, CHUNK)) for
+    each step, with the chunk skip applied."""
+    walk = _SlabWalk(feats_cm, pstart_blk, counts, cfg)
+    logT = torch.zeros((walk.Tt, cfg.pixels), device=feats_cm.device)
+    for j in range(walk.n_steps):
+        live, _, _, terms = walk.chunk(j, logT)
+        yield live, terms[-1]
+        logT = torch.where(live[:, None], logT + torch.log1p(-terms[-1]).sum(-1), logT)
+
+
+@torch.no_grad()
+def live_chunks(feats_cm, pstart_blk, counts, cfg) -> torch.Tensor:
+    """(Tt,) chunks each tile walks before every one of its pixels
+    saturates (the twins' chunk skip)."""
+    n = torch.zeros(pstart_blk.shape[0], dtype=torch.int64, device=feats_cm.device)
+    for live, _ in _walk(feats_cm, pstart_blk, counts, cfg):
+        n += live
+    return n
+
+
+@torch.no_grad()
+def active_warp_slots(feats_cm, pstart_blk, counts, cfg,
+                      warp_pixels: int = WARP_PIXELS) -> dict:
+    """Over the live chunks, the (warp, slot) pairs in which some pixel of
+    the warp (`warp_pixels` consecutive pixels) has a nonzero alpha, beside
+    all of them. The CUDA kernels skip the others
+    after one warp vote. -> {"active": int, "total": int}."""
+    active = total = 0
+    for live, alpha in _walk(feats_cm, pstart_blk, counts, cfg):
+        Tt, P, S = alpha.shape
+        hit = (alpha > 0).reshape(Tt, P // warp_pixels, warp_pixels, S).any(2)
+        active += int(hit[live].sum())
+        total += int(live.sum()) * (P // warp_pixels) * S
+    return {"active": active, "total": total}
+
+
 @torch.no_grad()
 def slab_pairs(feats_cm, pstart_blk, counts, cfg) -> dict:
     """(pixel, slot) pairs the slab kernels evaluate on these bins:
     {"padded": every chunk each tile owns, "live": up to where every pixel
     of the tile saturates (the kernels' chunk skip)}."""
-    walk = _SlabWalk(feats_cm, pstart_blk, counts, cfg)
-    P = cfg.pixels
-    padded = int(walk.nct.sum()) * CHUNK * P
-    logT = torch.zeros((walk.Tt, P), device=feats_cm.device)
-    live = 0
-    for j in range(walk.n_steps):
-        ok, _, _, terms = walk.chunk(j, logT)
-        live += int(ok.sum())
-        logT = torch.where(ok[:, None], logT + torch.log1p(-terms[-1]).sum(-1), logT)
-    return {"padded": padded, "live": live * CHUNK * P}
+    nct = (counts.to(torch.int64) + CHUNK - 1) // CHUNK
+    per_chunk = CHUNK * cfg.pixels
+    return {"padded": int(nct.sum()) * per_chunk,
+            "live": int(live_chunks(feats_cm, pstart_blk, counts, cfg).sum()) * per_chunk}
 
 
-def floors_ms(pairs: int, rates: dict) -> dict:
-    """Least forward and forward+backward times (ms) of `pairs` pairs at
-    the measured per-step rates (ns) with the port's per-pair op mix."""
+def floors_ms(pairs: int, rates: dict, mix: str = "log",
+              active_pairs: int | None = None) -> dict:
+    """Least forward and forward+backward times (ms) at the measured
+    per-step rates (ns). mix="log" charges FWD_MIX / BWD_MIX to each of
+    `pairs` live pairs; mix="linear" charges ALPHA_MIX to each live pair
+    and FWD_REST_MIX / BWD_REST_MIX to each of `active_pairs`, the pairs of
+    the active warp-slots (active_warp_slots' "active" times the warp's
+    pixels)."""
     t = dict(rates, flop=rates["fma"] / 2.0)
-    fwd = pairs * sum(n * t[k] for k, n in FWD_MIX.items()) / 1e6
-    bwd = pairs * sum(n * t[k] for k, n in BWD_MIX.items()) / 1e6
-    return {"floor_fwd_ms": fwd, "floor_bwd_ms": bwd, "floor_fwdbwd_ms": fwd + bwd}
 
+    def cost(m):
+        return sum(n * t[k] for k, n in m.items()) / 1e6
+
+    if mix == "log":
+        fwd, bwd = pairs * cost(FWD_MIX), pairs * cost(BWD_MIX)
+    elif mix == "linear":
+        if active_pairs is None:
+            raise ValueError('mix="linear" needs active_pairs')
+        alpha = pairs * cost(ALPHA_MIX)
+        fwd = alpha + active_pairs * cost(FWD_REST_MIX)
+        bwd = alpha + active_pairs * cost(BWD_REST_MIX)
+    else:
+        raise ValueError(f"mix must be one of {MIXES}, got {mix!r}")
+    return {"floor_fwd_ms": fwd, "floor_bwd_ms": bwd, "floor_fwdbwd_ms": fwd + bwd}
 
 def bench_map(n: int, seed: int, device="cuda") -> dict:
     """bench.py's random map of `n` Gaussians, drawn with numpy from `seed`
@@ -190,10 +257,15 @@ def main() -> int:
         print(f"{op}: {ns:.6f} ns/elem-step ({1.0 / ns:.2f} Gstep/s)", flush=True)
     feats, bins, cfg = tracking_slab()
     pairs = slab_pairs(feats, bins.pstart_blk, bins.counts, cfg)
+    slots = active_warp_slots(feats, bins.pstart_blk, bins.counts, cfg)
+    active = slots["active"] * WARP_PIXELS
     out = {"device": torch.cuda.get_device_name(0), "rates_ns_per_step": rates,
-           "pairs": pairs, "entries": int(bins.counts.sum()),
-           **{f"{k}_live": v for k, v in floors_ms(pairs["live"], rates).items()},
-           **{f"{k}_padded": v for k, v in floors_ms(pairs["padded"], rates).items()}}
+           "pairs": pairs, "active_pairs": active, "entries": int(bins.counts.sum())}
+    for which in ("live", "padded"):
+        out.update({f"{k}_{which}_log": v
+                    for k, v in floors_ms(pairs[which], rates).items()})
+    out.update({f"{k}_live_linear": v
+                for k, v in floors_ms(pairs["live"], rates, "linear", active).items()})
     print(json.dumps(out))
     return 0
 

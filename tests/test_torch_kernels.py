@@ -38,7 +38,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _params(n=3000, seed=0):
+def _params(n=3000, seed=0, kind="plain"):
+    """kind "plain": the default map; "saturating": larger Gaussians with
+    opacity logits raised by 4, so most tiles saturate and the chunk vote
+    skips chunks; "skewed": x and y drawn as -1 + 2 u^3, dense in one
+    corner, so tile counts span well over 8x."""
     rng = np.random.default_rng(seed)
     p = {
         "xyz": np.concatenate([rng.uniform(-1.0, 1.0, (n, 2)),
@@ -48,13 +52,18 @@ def _params(n=3000, seed=0):
         "opacity_logit": rng.normal(size=n),
         "rgb": rng.uniform(size=(n, 3)),
     }
+    if kind == "saturating":
+        p["log_scales"] = p["log_scales"] + 1.25
+        p["opacity_logit"] = p["opacity_logit"] + 4.0
+    elif kind == "skewed":
+        p["xyz"][:, :2] = -1.0 + 2.0 * rng.uniform(size=(n, 2)) ** 3
     return {k: torch.as_tensor(v, dtype=torch.float32) for k, v in p.items()}
 
 
-def _slab(n_img=1, tile=TILE):
+def _slab(n_img=1, tile=TILE, kind="plain"):
     """CPU-built slab inputs for n_img views in composite_slab's global
     layout: (feats_cm, pstart_blk, counts, cfg, channels, bins)."""
-    params = _params()
+    params = _params(kind=kind)
     intr = Intrinsics(fx=110.0, fy=110.0, cx=W / 2, cy=H / 2, width=W, height=H)
     cfg = tr.make_raster_config(W, H, tile)
     z = torch.zeros(3)
@@ -99,8 +108,9 @@ def _fwd_close(a, b):
 def test_slab_fwd_matches_plain(cuda, n_img, emit_touched):
     feats, pstart, counts, cfg, _ = _slab(n_img)
     args = [x.to(cuda) for x in (feats, pstart, counts)]
+    order = kernels.tile_order(args[2])
     before = kernels.slab_fwd.launches
-    out_k, touched_k = kernels.slab_fwd(*args, cfg, CAP, emit_touched)
+    out_k, touched_k = kernels.slab_fwd(*args, order, cfg, CAP, emit_touched)
     out_p, touched_p = tr._fwd_slab_plain(*args, cfg, CAP, emit_touched)
     torch.cuda.synchronize()
     assert kernels.slab_fwd.launches == before + 1
@@ -113,7 +123,8 @@ def test_slab_fwd_matches_plain(cuda, n_img, emit_touched):
 def test_slab_fwd_matches_plain_per_tile_size(cuda, tile):
     feats, pstart, counts, cfg, _ = _slab(1, tile=tile)
     args = [x.to(cuda) for x in (feats, pstart, counts)]
-    out_k, touched_k = kernels.slab_fwd(*args, cfg, CAP, True)
+    order = kernels.tile_order(args[2])
+    out_k, touched_k = kernels.slab_fwd(*args, order, cfg, CAP, True)
     out_p, touched_p = tr._fwd_slab_plain(*args, cfg, CAP, True)
     _fwd_close(out_k, out_p)
     assert torch.equal(touched_k, touched_p)
@@ -123,11 +134,12 @@ def test_slab_fwd_matches_plain_per_tile_size(cuda, tile):
 def test_slab_bwd_matches_plain(cuda, n_img):
     feats, pstart, counts, cfg, _ = _slab(n_img)
     args = [x.to(cuda) for x in (feats, pstart, counts)]
+    order = kernels.tile_order(args[2])
     out, _ = tr._fwd_slab_plain(*args, cfg, CAP, False)
     g = torch.randn(out.shape, generator=torch.Generator(cuda).manual_seed(1), device=cuda)
     baux = tr.bwd_aux(out, g)
     before = kernels.slab_bwd.launches
-    d_k = kernels.slab_bwd(*args, baux, cfg)
+    d_k = kernels.slab_bwd(*args, order, baux, cfg)
     d_p = tr._bwd_slab_plain(*args, baux, cfg)
     torch.cuda.synchronize()
     assert kernels.slab_bwd.launches == before + 1
@@ -138,9 +150,11 @@ def test_slab_bwd_matches_plain(cuda, n_img):
 def test_slab_bwd_is_deterministic(cuda):
     feats, pstart, counts, cfg, _ = _slab(1)
     args = [x.to(cuda) for x in (feats, pstart, counts)]
+    order = kernels.tile_order(args[2])
     out, _ = tr._fwd_slab_plain(*args, cfg, CAP, False)
     baux = tr.bwd_aux(out, torch.ones_like(out))
-    assert torch.equal(kernels.slab_bwd(*args, baux, cfg), kernels.slab_bwd(*args, baux, cfg))
+    assert torch.equal(kernels.slab_bwd(*args, order, baux, cfg),
+                       kernels.slab_bwd(*args, order, baux, cfg))
 
 
 @pytest.mark.parametrize("n", [1, 511, 512, 100_000])
@@ -153,9 +167,10 @@ def test_rows_to_channels_matches_plain(cuda, n):
 
 
 def test_composite_and_gather_autograd_on_card_match_cpu(cuda):
-    """The dispatchers route a CUDA tensor to the kernels: the slab forward,
-    its backward and the relayout in pack_features_slab's backward all run
-    on the card, and the gradients of every channel match the CPU twins."""
+    """The dispatchers route a CUDA tensor to the kernels: the tile order
+    (built once for both slab kernels), the slab forward, its backward and
+    the relayout in pack_features_slab's backward all run on the card, and
+    the gradients of every channel match the CPU twins."""
     _, _, _, cfg, views = _slab(1)
     ch, b = views[0]
     idx = (b.gauss_of_pos, b.gsort_pos, b.gseg_start, b.g_last)
@@ -169,10 +184,11 @@ def test_composite_and_gather_autograd_on_card_match_cpu(cuda):
         grads = torch.autograd.grad(out, leaves, cot.to(dev))
         return out.detach().cpu(), touched.cpu(), [g.cpu() for g in grads]
 
-    before = [k.launches for k in (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels)]
+    path = (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels, kernels.tile_order)
+    before = [k.launches for k in path]
     out_c, touched_c, grads_c = run(cuda)
-    after = [k.launches for k in (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels)]
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    after = [k.launches for k in path]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
     out_h, touched_h, grads_h = run(torch.device("cpu"))
     _fwd_close(out_c, out_h)
     assert torch.equal(touched_c, touched_h)
@@ -184,13 +200,14 @@ def test_slab_kernels_match_plain_at_window_8(cuda):
     """The mapping window's layout: 8 slabs, global block ids, one launch."""
     feats, pstart, counts, cfg, _ = _slab(8)
     args = [x.to(cuda) for x in (feats, pstart, counts)]
-    out_k, touched_k = kernels.slab_fwd(*args, cfg, CAP, True)
+    order = kernels.tile_order(args[2])
+    out_k, touched_k = kernels.slab_fwd(*args, order, cfg, CAP, True)
     out_p, touched_p = tr._fwd_slab_plain(*args, cfg, CAP, True)
     _fwd_close(out_k, out_p)
     assert torch.equal(touched_k, touched_p)
     g = torch.randn(out_p.shape, generator=torch.Generator(cuda).manual_seed(4), device=cuda)
     baux = tr.bwd_aux(out_p, g)
-    _grad_close(kernels.slab_bwd(*args, baux, cfg), tr._bwd_slab_plain(*args, baux, cfg),
+    _grad_close(kernels.slab_bwd(*args, order, baux, cfg), tr._bwd_slab_plain(*args, baux, cfg),
                 dims=(0, 2))
 
 
@@ -248,3 +265,99 @@ def test_window_render_on_card_matches_cpu(cuda):
     assert torch.equal(nt_c, nt_h)
     for gc, gh in zip(g_c, g_h):
         _grad_close(gc, gh, dims=0)
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_slab_fwd_variants_give_bit_identical_images(cuda, tile):
+    """The touched variant computes the image exactly as the hot variant
+    (the same linear T and chunk vote), as the JAX suite holds its two
+    Pallas variants (tests/test_raster.py:204-217)."""
+    feats, pstart, counts, cfg, _ = _slab(2, tile=tile)
+    args = [x.to(cuda) for x in (feats, pstart, counts)]
+    order = kernels.tile_order(args[2])
+    out_hot, _ = kernels.slab_fwd(*args, order, cfg, CAP, False)
+    out_touched, touched = kernels.slab_fwd(*args, order, cfg, CAP, True)
+    assert torch.equal(out_hot, out_touched)
+    assert int(touched.sum()) > 0
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_slab_kernels_on_a_saturating_slab(cuda, tile):
+    """Opaque, larger Gaussians: the chunk vote skips chunks, and both
+    kernels still match their twins (touched bit-exact)."""
+    from monogs_torch.tools import roofline
+
+    feats, pstart, counts, cfg, _ = _slab(1, tile=tile, kind="saturating")
+    args = [x.to(cuda) for x in (feats, pstart, counts)]
+    order = kernels.tile_order(args[2])
+    nct = (args[2].to(torch.int64) + 127) // 128
+    assert int(roofline.live_chunks(*args, cfg).sum()) < int(nct.sum())
+    out_k, touched_k = kernels.slab_fwd(*args, order, cfg, CAP, True)
+    out_p, touched_p = tr._fwd_slab_plain(*args, cfg, CAP, True)
+    _fwd_close(out_k, out_p)
+    assert torch.equal(touched_k, touched_p)
+    g = torch.randn(out_p.shape, generator=torch.Generator(cuda).manual_seed(6), device=cuda)
+    baux = tr.bwd_aux(out_p, g)
+    _grad_close(kernels.slab_bwd(*args, order, baux, cfg), tr._bwd_slab_plain(*args, baux, cfg),
+                dims=(0, 2))
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_slab_kernels_on_skewed_tiles(cuda, tile):
+    """Tile counts spanning over 8x, so the heaviest-first order differs
+    from the id order: both kernels match their twins, the tile-order
+    kernel matches its twin, and the outputs do not depend on the order."""
+    feats, pstart, counts, cfg, _ = _slab(2, tile=tile, kind="skewed")
+    nz = counts[counts > 0]
+    assert int(nz.max()) >= 8 * int(nz.min())
+    args = [x.to(cuda) for x in (feats, pstart, counts)]
+    before = kernels.tile_order.launches
+    order = kernels.tile_order(args[2])
+    assert kernels.tile_order.launches == before + 1
+    assert torch.equal(order, tr._tile_order_plain(args[2]))
+    assert not torch.equal(order.cpu(), torch.arange(counts.numel(), dtype=torch.int32))
+    out_k, touched_k = kernels.slab_fwd(*args, order, cfg, CAP, True)
+    out_p, touched_p = tr._fwd_slab_plain(*args, cfg, CAP, True)
+    _fwd_close(out_k, out_p)
+    assert torch.equal(touched_k, touched_p)
+    g = torch.randn(out_p.shape, generator=torch.Generator(cuda).manual_seed(7), device=cuda)
+    baux = tr.bwd_aux(out_p, g)
+    d_k = kernels.slab_bwd(*args, order, baux, cfg)
+    _grad_close(d_k, tr._bwd_slab_plain(*args, baux, cfg), dims=(0, 2))
+    ids = torch.arange(counts.numel(), dtype=torch.int32, device=cuda)
+    out_i, touched_i = kernels.slab_fwd(*args, ids, cfg, CAP, True)
+    assert torch.equal(out_i, out_k) and torch.equal(touched_i, touched_k)
+    assert torch.equal(kernels.slab_bwd(*args, ids, baux, cfg), d_k)
+
+
+@pytest.mark.parametrize("kind", ["skewed", "saturating"])
+@pytest.mark.parametrize("tile", [16, 32])
+def test_slab_bwd_launches_are_bit_identical(cuda, tile, kind):
+    """Heaviest-first scheduling keeps one block per tile and a fixed sum
+    order: two launches give the same bits."""
+    feats, pstart, counts, cfg, _ = _slab(2, tile=tile, kind=kind)
+    args = [x.to(cuda) for x in (feats, pstart, counts)]
+    order = kernels.tile_order(args[2])
+    out, _ = kernels.slab_fwd(*args, order, cfg, CAP, False)
+    g = torch.randn(out.shape, generator=torch.Generator(cuda).manual_seed(8), device=cuda)
+    baux = tr.bwd_aux(out, g)
+    assert torch.equal(kernels.slab_bwd(*args, order, baux, cfg),
+                       kernels.slab_bwd(*args, order, baux, cfg))
+
+
+def test_tile_order_matches_plain_at_scale(cuda):
+    """Several 1024-tile rounds of the one-block counting sort, with counts
+    past the 63-chunk cap and empty tiles."""
+    counts = torch.randint(0, 10_000, (5000,), generator=torch.Generator().manual_seed(9),
+                           dtype=torch.int32)
+    counts[::7] = 0
+    c = counts.to(cuda)
+    assert torch.equal(kernels.tile_order(c), tr._tile_order_plain(c))
+
+
+def test_slab_kernels_refuse_other_tile_sizes(cuda):
+    feats, pstart, counts, _, _ = _slab(1)
+    args = [x.to(cuda) for x in (feats, pstart, counts)]
+    order = kernels.tile_order(args[2])
+    with pytest.raises(ValueError, match="tile_size 8"):
+        kernels.slab_fwd(*args, order, tr.make_raster_config(W, H, 8), CAP, False)

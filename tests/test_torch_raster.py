@@ -338,13 +338,16 @@ def test_kernel_launchers_take_cuda_tensors_only():
     plain twins."""
     feats, _, _, pstart, counts, cfg = _slab(1)
     before = (kernels.slab_fwd.launches, kernels.slab_bwd.launches,
-              kernels.rows_to_channels.launches)
+              kernels.rows_to_channels.launches, kernels.tile_order.launches)
+    order = torch.arange(len(counts), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.slab_fwd(_t(feats), _t(pstart), _t(counts), _tcfg(cfg), CAP, True)
+        kernels.slab_fwd(_t(feats), _t(pstart), _t(counts), order, _tcfg(cfg), CAP, True)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.slab_bwd(_t(feats), _t(pstart), _t(counts),
+        kernels.slab_bwd(_t(feats), _t(pstart), _t(counts), order,
                          torch.zeros(len(counts), 8, cfg.pixels), _tcfg(cfg))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.tile_order(_t(counts))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.rows_to_channels(torch.zeros(10, 16))
     assert before == (kernels.slab_fwd.launches, kernels.slab_bwd.launches,
-                      kernels.rows_to_channels.launches)
+                      kernels.rows_to_channels.launches, kernels.tile_order.launches)

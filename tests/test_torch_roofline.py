@@ -99,3 +99,67 @@ def test_probe_launcher_takes_cuda_tensors_only():
         with pytest.raises(RuntimeError, match="card"):
             roofline.op_microbench("exp")
         assert roofline.main() == 2
+
+
+def test_floors_take_the_linear_mix():
+    """mix="linear" is the CUDA kernels' work: alpha (one expf) on every
+    live pair, the rest (the backward's divide) only on the active
+    warp-slots' pairs; the default stays the twins' log-space mix."""
+    rates = {"fma": 2.0, "exp": 10.0, "log1p": 20.0, "div": 30.0}
+    f = roofline.floors_ms(1_000_000, rates, mix="linear", active_pairs=250_000)
+    alpha = 1e6 * (10 + 16 * 1.0) / 1e6
+    fwd = alpha + 250_000 * (8 * 1.0) / 1e6
+    bwd = alpha + 250_000 * (30 + 27 * 1.0) / 1e6
+    assert f["floor_fwd_ms"] == pytest.approx(fwd)
+    assert f["floor_bwd_ms"] == pytest.approx(bwd)
+    assert f["floor_fwdbwd_ms"] == pytest.approx(fwd + bwd)
+    # Every pair active: the linear floor stays under the log-space one.
+    full = roofline.floors_ms(1_000_000, rates, "linear", active_pairs=1_000_000)
+    log = roofline.floors_ms(1_000_000, rates)
+    assert log == roofline.floors_ms(1_000_000, rates, "log")
+    assert full["floor_fwd_ms"] < log["floor_fwd_ms"]
+    assert full["floor_bwd_ms"] < log["floor_bwd_ms"]
+    with pytest.raises(ValueError, match="active_pairs"):
+        roofline.floors_ms(1, rates, mix="linear")
+    with pytest.raises(ValueError, match="mix"):
+        roofline.floors_ms(1, rates, mix="fast")
+
+
+def test_live_chunks_stop_where_the_tile_saturates():
+    """Tile 0 is opaque everywhere (alpha 0.99 on every slot: log T passes
+    ln 1e-4 within the first chunk), tile 1 transparent: 1 of 3 chunks
+    against all 3."""
+    from monogs_torch.ops.binning import SLAB
+
+    cfg = tr.make_raster_config(32, 16, 16)
+    feats = torch.zeros((1, 16, 2 * SLAB))
+    feats[0, 5, :SLAB] = 0.99
+    counts = torch.tensor([300, 300], dtype=torch.int32)
+    pstart = torch.tensor([0, 1], dtype=torch.int32)
+    assert roofline.live_chunks(feats, pstart, counts, cfg).tolist() == [1, 3]
+    p = roofline.slab_pairs(feats, pstart, counts, cfg)
+    assert p["padded"] == 6 * 128 * cfg.pixels and p["live"] == 4 * 128 * cfg.pixels
+
+
+def test_tile_order_twin_sorts_by_descending_chunks_stably():
+    counts = torch.tensor([0, 129, 5, 300, 128, 257, 9000, 1], dtype=torch.int32)
+    order = tr._tile_order_plain(counts)
+    assert order.dtype == torch.int32
+    # chunks: 0, 2, 1, 3, 1, 3, 71 -> capped 63, 1
+    assert order.tolist() == [6, 3, 5, 1, 2, 4, 7, 0]
+
+
+def test_active_warp_slots_count_the_warps_with_alpha():
+    """Tile 16 has 256 pixels, two warps of 128: a Gaussian that only
+    reaches the top rows makes one warp-slot of the two active."""
+    from monogs_torch.ops.binning import SLAB
+
+    cfg = tr.make_raster_config(16, 16, 16)
+    feats = torch.zeros((1, 16, SLAB))
+    feats[0, 0, 0], feats[0, 1, 0] = 8.0, 1.0          # u, v: near the top
+    feats[0, 2, 0] = feats[0, 4, 0] = 1.0              # conic a = c = 1
+    feats[0, 5, 0] = 0.9                               # opacity
+    counts = torch.tensor([1], dtype=torch.int32)
+    pstart = torch.tensor([0], dtype=torch.int32)
+    got = roofline.active_warp_slots(feats, pstart, counts, cfg)
+    assert got == {"active": 1, "total": 2 * 128}
