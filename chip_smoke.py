@@ -54,6 +54,18 @@ Phases, one line each; any failure propagates and exits non-zero:
      and the slab kernels' measured-rate floors at both widths, for the
      twins' log-space work and the kernels' linear-T work, each beside its
      share of the kernel's time;
+  9. the SLAM system: `python -m monogs_torch`'s main() in this process on
+     configs/synthetic/room.yaml (640x480 RGB-D, the 150,000-Gaussian
+     room, the config's budgets) for 16 frames with --eval and the
+     synthetic cache off: fps and wall time beside the host CPU, ATE, PSNR
+     and SSIM, active Gaussians and keyframes, tracking iterations, the
+     profiling sections per tracked frame and per keyframe, the host reads
+     per stage (under torch.cuda.set_sync_debug_mode), each kernel's
+     launches (those of the ground-truth renders apart), the PLY against
+     the map. It fails on a non-finite pose, ATE >= 0.05 m, PSNR <= 15 dB,
+     a bad PLY, a slab kernel that did not launch, a tracker or mapper
+     backend other than "slab", or a plain twin or the dense oracle called
+     (a CPU tensor or the "ref" backend on the path);
 then the kernels' JSON line (each row's `launches` is the sum of the
 per-path counts beside it; its times, bound and error are at the mapping
 shapes, or the probe's) and, last, {"ok": true, "device": {...}}.
@@ -83,6 +95,12 @@ import warnings
 
 H100_FP32_OPS = 67e12    # float32 outside the tensor cores, op/s
 H100_HBM_BYTES = 3.35e12  # B/s
+# The special-function units (MUFU: ex2, lg2, rcp, ...): 16 results a clock
+# per SM on compute capability 9.0 (the CUDA C++ Programming Guide's
+# arithmetic-throughput table), on the H100 SXM's 132 SMs at its published
+# 1,980 MHz boost clock. The probe's bound_ms charges each expf as one
+# FMA-pipe operation at H100_FP32_OPS; bound_sfu_ms charges its ex2 here.
+H100_SFU_OPS = 16 * 132 * 1.98e9   # results/s
 # float32 operations per (pixel, slot) pair, each expf, log1pf or divide as
 # one operation and an fma as two (as the peak rate counts it).
 # The slab kernels' own work (bound_ms). Every live pair pays for its alpha;
@@ -623,6 +641,7 @@ def mapping_phases(dev, smi: str, track_launches: dict, track_slab) -> list:
                     lambda: roofline.op_chain_plain(xp, "exp", roofline.PROBE_REP,
                                                     roofline.PROBE_LANES),
                     None, 3 * steps, (xp.numel() + xp[0].numel()) * 4, plain_reps=1)
+    t["bound_sfu_ms"] = steps / H100_SFU_OPS * 1e3
     line("kernel", name="op_microbench(exp)", **t, card=repr(smi))
     report.append({"name": "op_microbench", "route": "cuda",
                    "source": "monogs_torch/csrc/microbench.cu",
@@ -631,6 +650,192 @@ def mapping_phases(dev, smi: str, track_launches: dict, track_slab) -> list:
                    "launches": probe_launches, "launches_roofline": probe_launches,
                    "shape": "probe", "max_abs_err": max(probe_err.values()), **t})
     return report
+
+
+# Phase 9: `python -m monogs_torch` on the flagship synthetic config, cut to
+# its first 16 frames (keyframes 0, 5, 10, 15: the map initialisation and
+# three mapping events); every other budget is the config's own.
+SYSTEM_ARGV = ["--config", "configs/synthetic/room.yaml", "--n-frames", "16", "--eval",
+               "--device", "cuda", "--backend", "slab"]
+SYSTEM_ATE_MAX, SYSTEM_PSNR_MIN = 0.05, 15.0   # tests/test_slam_e2e.py:75,87
+# Where a host read (an implicit device sync) lands, by the innermost SLAM
+# method on the reading thread's stack.
+READ_STAGE = {"track": "tracking", "_mapper_keyframe": "keyframe",
+              "_apply_mapper_result": "keyframe", "process_frame": "keyframe",
+              "initialize": "init", "_load_frame_impl": "load", "render_at": "eval",
+              "eval_rendering": "eval", "save_map": "export", "run": "run"}
+
+
+def host_cpu() -> str:
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                if ln.startswith("model name"):
+                    return ln.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return "unknown"
+
+
+def system_phase(smi: str) -> dict:
+    """Phase 9: the synchronous SLAM system on the card, through the
+    command line's main() in this process: 16 frames of
+    configs/synthetic/room.yaml at its full width (640x480, the 150,000-
+    Gaussian room, tracking 100 / mapping 150 / init 1,050 iterations,
+    window 8, entry capacity 225,280), the synthetic disk cache off so the
+    ground truth renders through the kernels, --eval. Fails on a non-finite
+    pose, ATE >= 0.05 m, PSNR <= 15 dB, a PLY that is empty or disagrees
+    with the map, a slab kernel that did not launch, a tracker or mapper
+    backend other than "slab", or any plain twin or dense-oracle call (a CPU
+    tensor or the "ref" backend on the path). -> each kernel's launches
+    in the phase."""
+    import threading
+    import traceback
+
+    import numpy as np
+    import torch
+    from monogs_torch.__main__ import main as slam_main
+    from monogs_torch.data.synthetic import SyntheticDataset
+    from monogs_torch.ops import kernels, render, tile_raster
+    from monogs_torch.utils.ply import load_ply
+
+    os.environ["MONOGS_SYNTH_CACHE"] = "0"
+    counted = (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels,
+               kernels.tile_order, kernels.op_microbench)
+    for k in counted:
+        k.launches = 0
+    # Any CPU tensor on the path shows as a call of a plain twin, and a render
+    # on the "ref" backend as a call of the dense oracle. Each is counted in
+    # the module whose code calls it: the slab twins in tile_raster's
+    # dispatchers, the oracle in render.py, which imports it by name. (The
+    # tile order's twin is reached only from the card tests and phase 3.)
+    # The GT renders' slab_fwd launches are told apart by a thread-local flag
+    # set around the dataset's render.
+    patched = ((tile_raster, "_fwd_slab_plain"), (tile_raster, "_bwd_slab_plain"),
+               (tile_raster, "_rows_to_channels_plain"), (render, "composite_tiles_ref"),
+               (tile_raster, "_fwd_slab"))
+    twins = tuple(n for _, n in patched[:-1])
+    twin_calls = {n: 0 for n in twins}
+    saved = {n: getattr(mod, n) for mod, n in patched}
+    saved_render = SyntheticDataset._render_pose
+    in_gt = threading.local()
+    gt = {"renders": 0, "slab_fwd": 0}
+
+    def count_twin(name):
+        def call(*a, **kw):
+            twin_calls[name] += 1
+            return saved[name](*a, **kw)
+        return call
+
+    def fwd_slab(*a, **kw):
+        if getattr(in_gt, "on", False) and a[0].is_cuda:
+            gt["slab_fwd"] += 1
+        return saved["_fwd_slab"](*a, **kw)
+
+    def render_pose(self, *a, **kw):
+        in_gt.on = True
+        gt["renders"] += 1
+        try:
+            return saved_render(self, *a, **kw)
+        finally:
+            in_gt.on = False
+
+    reads = {}
+    sync_warn = "called a synchronizing CUDA operation"
+
+    def on_warning(message, category, filename, lineno, file=None, line_=None):
+        if sync_warn not in str(message):
+            return
+        stack = traceback.extract_stack()
+        if any(fr.filename.endswith(os.path.join("utils", "profiling.py")) for fr in stack):
+            return     # a profiling section's own wait, not a read of the path
+        stage = "other"
+        for fr in reversed(stack):
+            if fr.filename.endswith(os.path.join("slam", "system.py")) and fr.name in READ_STAGE:
+                stage = READ_STAGE[fr.name]
+                break
+        reads[stage] = reads.get(stage, 0) + 1
+
+    for mod, n in patched[:-1]:
+        setattr(mod, n, count_twin(n))
+    tile_raster._fwd_slab = fwd_slab
+    SyntheticDataset._render_pose = render_pose
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = on_warning
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = slam_main(SYSTEM_ARGV)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        for mod, n in patched:
+            setattr(mod, n, saved[n])
+        SyntheticDataset._render_pose = saved_render
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in counted}
+    slam = out["slam"]
+
+    poses = np.stack([np.concatenate([R.ravel(), t]) for R, t in slam.est_poses.values()])
+    finite = bool(np.isfinite(poses).all())
+    with open(os.path.join(out["save_dir"], "psnr", "final", "final_result.json")) as f:
+        ev = json.load(f)
+    ply = load_ply(os.path.join(out["save_dir"], "point_cloud", "final", "point_cloud.ply"))
+    active = slam.state.gmap.active
+    xyz_map = slam.state.gmap.params["xyz"][active].cpu().numpy()
+    ply_ok = ply["xyz"].shape[0] == out["map_active"] > 0 and np.array_equal(ply["xyz"], xyz_map)
+    on_card = [k for k, v in slam.state.gmap.params.items() if not v.is_cuda] + [
+        f for f, v in zip(slam.state.window.frames._fields, slam.state.window.frames)
+        if not v.is_cuda]
+    its = slam.metrics["tracking_iters"]
+    stages = out["stages"]
+    n_tracked, n_kf = len(its), out["n_keyframes"] - 1
+    track_ms = sum(stages[k]["total_s"] for k in ("track.dispatch", "track.readback")) \
+        / n_tracked * 1e3
+    kf_ms = sum(v["total_s"] for k, v in stages.items() if k.startswith("kf.")) / n_kf * 1e3
+    line("system", config=SYSTEM_ARGV[1], frames=out["n_frames"], fps=out["fps"],
+         wall_s=out["wall_s"], phase_s=f"{phase_s:.1f}", host_cpu=repr(host_cpu()),
+         host_cpus=os.cpu_count(), card=repr(smi))
+    line("system", ate_rmse=out["final_ate_rmse"], psnr=ev["mean_psnr"], ssim=ev["mean_ssim"],
+         eval_frames=ev["n_frames"], train_view_inflated=ev.get("train_view_inflated", False),
+         active=out["map_active"], keyframes=out["n_keyframes"],
+         kf_history=sorted(slam.kf_history), window=slam.kf_list)
+    line("system", tracking_iters_mean=out["tracking_iters_mean"], tracking_iters_max=max(its),
+         tracking_ms_per_frame=track_ms, mapping_ms_per_keyframe=kf_ms,
+         init_s=stages["init"]["total_s"], overflow_max=out["overflow_max"],
+         entry_capacity=(slam.tcfg.entry_capacity, slam.mcfg.entry_capacity))
+    for k, v in sorted(stages.items()):
+        print(f"  stage: {k:18s} n={v['n']:3d} total_s={v['total_s']:.3f} "
+              f"mean_ms={v['mean_ms']:.2f}")
+    line("system", host_reads=repr(reads),
+         reads_per_tracked_frame=reads.get("tracking", 0) / n_tracked,
+         reads_per_keyframe=reads.get("keyframe", 0) / n_kf,
+         note="read counts taken under torch.cuda.set_sync_debug_mode; "
+              "the frame-load reads are the GT renders' image reads")
+    line("launches", path="system", gt_renders=gt["renders"], gt_slab_fwd=gt["slab_fwd"],
+         twin_calls=sum(twin_calls.values()), **launches)
+    line("system", ply_vertices=ply["xyz"].shape[0], num_active=out["map_active"],
+         ply_matches_map=ply_ok, poses_finite=finite, card=repr(smi))
+    require(finite, "a frame's pose is not finite")
+    require(out["final_ate_rmse"] < SYSTEM_ATE_MAX,
+            f"ATE {out['final_ate_rmse']:.4f} m is not under {SYSTEM_ATE_MAX}")
+    require(ev["mean_psnr"] > SYSTEM_PSNR_MIN,
+            f"PSNR {ev['mean_psnr']:.2f} dB is not over {SYSTEM_PSNR_MIN}")
+    require(ply_ok, "the PLY is empty or disagrees with the map")
+    require(launches["slab_fwd"] > 0 and launches["slab_bwd"] > 0
+            and launches["rows_to_channels"] > 0 and launches["tile_order"] > 0,
+            "a kernel of the system path did not launch")
+    require(gt["renders"] >= 16 and gt["slab_fwd"] >= gt["renders"],
+            "the ground truth did not render through slab_fwd")
+    require(slam.tcfg.backend == slam.mcfg.backend == "slab",
+            f"the system ran backends {slam.tcfg.backend!r} / {slam.mcfg.backend!r}, "
+            "not 'slab'")
+    require(not any(twin_calls.values()) and not on_card,
+            f"the system path touched CPU tensors: twins {twin_calls}, off the card {on_card}")
+    return launches
 
 
 def pose_error(R, t, R_gt, t_gt) -> tuple[float, float]:
@@ -888,6 +1093,12 @@ def main() -> int:
 
     # 6-8. The mapping path, its kernels and the roofline probe.
     report = mapping_phases(dev, smi, launches, track_slab)
+
+    # 9. The SLAM system through its command line.
+    sys_launches = system_phase(smi)
+    for row in report:
+        row["launches_system"] = sys_launches[row["name"]]
+        row["launches"] += sys_launches[row["name"]]
     line("done", total_s=f"{time.perf_counter() - t_start:.1f}")
 
     print(smi)

@@ -54,14 +54,14 @@ log = logging.getLogger(__name__)
 @dataclasses.dataclass(frozen=True)
 class MapperConfig:
     """Mapping hyperparameters; the defaults are the JAX package's. The
-    fields of what is not ported yet (refinement, the SLAM loop's window
-    size and iterations per keyframe) come with it."""
+    refinement's fields come with the refinement."""
 
     init_itr_num: int = 1050
     init_gaussian_update: int = 100
     init_gaussian_reset: int = 500
     init_gaussian_th: float = 0.005
     init_gaussian_extent: float = 30.0
+    iters_per_kf: int = 300
     gaussian_update_every: int = 150
     gaussian_update_offset: int = 50
     gaussian_th: float = 0.7
@@ -375,6 +375,18 @@ def window_host_pack(state: MapperState) -> torch.Tensor:
     (Wc)]."""
     f = state.window.frames
     return torch.cat([f.R.reshape(-1), f.t.reshape(-1), f.exposure_a, f.exposure_b])
+
+
+def unpack_window_host(pack: torch.Tensor, Wc: int) -> dict:
+    """Decode window_host_pack with one host read -> numpy arrays R (Wc, 3,
+    3), t (Wc, 3), exposure_a (Wc,), exposure_b (Wc,)."""
+    s = pack.detach().cpu().numpy()
+    return {
+        "R": s[: Wc * 9].reshape(Wc, 3, 3),
+        "t": s[Wc * 9: Wc * 12].reshape(Wc, 3),
+        "exposure_a": s[Wc * 12: Wc * 13],
+        "exposure_b": s[Wc * 13: Wc * 14],
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,8 @@ monogs_tpu value, for one) and imports nothing of the JAX package."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -47,3 +49,33 @@ def mapper_state_from_numpy(state, device="cuda", seed: int = 0) -> MapperState:
     return MapperState(gmap=gmap, adam=adam, window=window, pose_adam=pose_adam,
                        nr_iters=_t(state.nr_iters, device, torch.int32),
                        rng=torch.Generator(device).manual_seed(seed))
+
+
+def slam_from_numpy(src, slam, device="cuda"):
+    """Set a port `SLAM`'s state to another SLAM's (a monogs_tpu one, for
+    one): the mapper state, the derived entry capacities, and the host
+    bookkeeping (poses, exposures, frames, visibility, the keyframe list
+    and window slots, the prune and window flags, the probe counters), so
+    that both take their next frame from the same point. -> slam."""
+    slam.state = mapper_state_from_numpy(src.state, device)
+    slam.tcfg = dataclasses.replace(slam.tcfg, entry_capacity=src.tcfg.entry_capacity)
+    slam.mcfg = dataclasses.replace(slam.mcfg, entry_capacity=src.mcfg.entry_capacity)
+
+    def pose(p):
+        return tuple(np.array(x) for x in p)
+
+    slam.est_poses = {i: pose(p) for i, p in src.est_poses.items()}
+    slam._raw_poses = {i: pose(p) for i, p in src._raw_poses.items()}
+    slam.gt_poses = {i: pose(p) for i, p in src.gt_poses.items()}
+    slam.exposures = {i: tuple(float(np.asarray(x)) for x in e)
+                      for i, e in src.exposures.items()}
+    slam.frames = {i: frame_from_numpy(f, device) for i, f in src.frames.items()}
+    slam.vis_dict = {i: _t(v, device, torch.bool) for i, v in src.vis_dict.items()}
+    slam.kf_list = list(src.kf_list)
+    slam.kf_history = set(src.kf_history)
+    slam._window_slots = (None if src._window_slots is None
+                          else list(src._window_slots))
+    for name in ("is_window_full", "first_time_pruned", "median_depth", "_cap_bumps",
+                 "_probe_counter", "_kf_probe_counter"):
+        setattr(slam, name, getattr(src, name))
+    return slam
