@@ -65,7 +65,24 @@ Phases, one line each; any failure propagates and exits non-zero:
      the map. It fails on a non-finite pose, ATE >= 0.05 m, PSNR <= 15 dB,
      a bad PLY, a slab kernel that did not launch, a tracker or mapper
      backend other than "slab", or a plain twin or the dense oracle called
-     (a CPU tensor or the "ref" backend on the path);
+     (a CPU tensor or the "ref" backend on the path). Then, through the
+     same command line (--refine-curve 0,400), the colour refinement: the
+     map evaluated before it (the PSNR line and gate above read this
+     evaluation), 400 colours-only iterations, evaluated again; ms per
+     iteration (synced wall), PSNR / SSIM before and after, the overflow,
+     its launches, tile_bin calls and host reads, and device busy over 8
+     profiled iterations. It fails on a PSNR more than 1 dB under the
+     one before, a geometry leaf that moved, slab_fwd / slab_bwd not
+     launched once an iteration or tile_bin not run once a span of 8, or
+     more than 3 host reads;
+ 10. the monocular system: the same command line on
+     configs/synthetic/room_mono.yaml (room.yaml without sensor depth,
+     isotropic Gaussians) for 11 frames with --eval --ate-align-scale: fps,
+     unaligned and scale-aligned ATE, PSNR and SSIM. It fails on an ATE
+     that is not finite or not under twice the summed ground-truth motion,
+     100 active Gaussians or fewer, PSNR <= 10 dB (tests/test_slam_e2e.py:
+     159-190), and on phase 9's checks of the PLY, the kernels, the
+     backends and the twins;
 then the kernels' JSON line (each row's `launches` is the sum of the
 per-path counts beside it; its times, bound and error are at the mapping
 shapes, or the probe's) and, last, {"ok": true, "device": {...}}.
@@ -654,16 +671,33 @@ def mapping_phases(dev, smi: str, track_launches: dict, track_slab) -> list:
 
 # Phase 9: `python -m monogs_torch` on the flagship synthetic config, cut to
 # its first 16 frames (keyframes 0, 5, 10, 15: the map initialisation and
-# three mapping events); every other budget is the config's own.
+# three mapping events); every other budget is the config's own. Then the
+# colour refinement through the same command line: the map is evaluated
+# before any refinement (milestone 0) and after 400 colours-only iterations
+# (50 spans of 8), the cut of the 3,000-iteration protocol for time.
+REFINE_ITERS, REFINE_SPAN = 400, 8
 SYSTEM_ARGV = ["--config", "configs/synthetic/room.yaml", "--n-frames", "16", "--eval",
-               "--device", "cuda", "--backend", "slab"]
+               "--device", "cuda", "--backend", "slab", "--refine-curve", f"0,{REFINE_ITERS}"]
 SYSTEM_ATE_MAX, SYSTEM_PSNR_MIN = 0.05, 15.0   # tests/test_slam_e2e.py:75,87
+REFINE_PSNR_DROP = 1.0                         # tests/test_slam_e2e.py:113
+# The refinement's host reads: the keyframes' poses and exposures staged in
+# one copy, and the overflow read at 200 and 400 iterations.
+REFINE_READS_MAX = 3
+# Phase 10: the monocular room (configs/synthetic/room_mono.yaml: the same
+# scene and orbit, no sensor depth, isotropic Gaussians) for 11 frames,
+# keyframes 0, 5 and 10: the map initialisation and two mapping events,
+# with the monocular protocol's scale-aligned ATE. Its bounds are
+# tests/test_slam_e2e.py:159-190's.
+MONO_ARGV = ["--config", "configs/synthetic/room_mono.yaml", "--n-frames", "11", "--eval",
+             "--ate-align-scale", "--device", "cuda", "--backend", "slab"]
+MONO_PSNR_MIN, MONO_ACTIVE_MIN = 10.0, 100
 # Where a host read (an implicit device sync) lands, by the innermost SLAM
 # method on the reading thread's stack.
 READ_STAGE = {"track": "tracking", "_mapper_keyframe": "keyframe",
               "_apply_mapper_result": "keyframe", "process_frame": "keyframe",
               "initialize": "init", "_load_frame_impl": "load", "render_at": "eval",
-              "eval_rendering": "eval", "save_map": "export", "run": "run"}
+              "eval_rendering": "eval", "save_map": "export", "run": "run",
+              "refine": "refine"}
 
 
 def host_cpu() -> str:
@@ -677,60 +711,70 @@ def host_cpu() -> str:
     return "unknown"
 
 
-def system_phase(smi: str) -> dict:
-    """Phase 9: the synchronous SLAM system on the card, through the
-    command line's main() in this process: 16 frames of
-    configs/synthetic/room.yaml at its full width (640x480, the 150,000-
-    Gaussian room, tracking 100 / mapping 150 / init 1,050 iterations,
-    window 8, entry capacity 225,280), the synthetic disk cache off so the
-    ground truth renders through the kernels, --eval. Fails on a non-finite
-    pose, ATE >= 0.05 m, PSNR <= 15 dB, a PLY that is empty or disagrees
-    with the map, a slab kernel that did not launch, a tracker or mapper
-    backend other than "slab", or any plain twin or dense-oracle call (a CPU
-    tensor or the "ref" backend on the path). -> each kernel's launches
-    in the phase."""
+def drive_cli(argv: list) -> tuple[dict, dict]:
+    """`python -m monogs_torch`'s main(argv) in this process, with every
+    kernel's launch count set to 0 just before and read just after, the
+    synthetic disk cache off (so the ground truth renders through the
+    kernels), and counted: the plain twins' and the dense oracle's calls
+    (a CPU tensor or the "ref" backend on the path), the ground-truth
+    renders and their slab_fwd launches, the host reads per stage (under
+    torch.cuda.set_sync_debug_mode; a profiling section's own wait is not
+    a read), and inside `SLAM.refine` alone: its synced wall time, the
+    kernels' launches, the `tile_bin` calls and the host reads, beside a
+    copy of the map's geometry leaves taken when it starts.
+    -> (main's summary, counts)."""
     import threading
     import traceback
 
-    import numpy as np
     import torch
     from monogs_torch.__main__ import main as slam_main
     from monogs_torch.data.synthetic import SyntheticDataset
     from monogs_torch.ops import kernels, render, tile_raster
-    from monogs_torch.utils.ply import load_ply
+    from monogs_torch.slam import mapper
+    from monogs_torch.slam.system import SLAM
 
     os.environ["MONOGS_SYNTH_CACHE"] = "0"
     counted = (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels,
                kernels.tile_order, kernels.op_microbench)
     for k in counted:
         k.launches = 0
-    # Any CPU tensor on the path shows as a call of a plain twin, and a render
-    # on the "ref" backend as a call of the dense oracle. Each is counted in
-    # the module whose code calls it: the slab twins in tile_raster's
-    # dispatchers, the oracle in render.py, which imports it by name. (The
-    # tile order's twin is reached only from the card tests and phase 3.)
-    # The GT renders' slab_fwd launches are told apart by a thread-local flag
-    # set around the dataset's render.
+    # Each twin, the oracle and tile_bin are counted in the module whose
+    # code calls them: the slab twins in tile_raster's dispatchers, the
+    # oracle and the render's binning in render.py and the refinement's
+    # binning in mapper.py, which import them by name. (The tile order's
+    # twin is reached only from the card tests and phase 3.) The GT
+    # renders' slab_fwd launches are told apart by a thread-local flag set
+    # around the dataset's render.
     patched = ((tile_raster, "_fwd_slab_plain"), (tile_raster, "_bwd_slab_plain"),
                (tile_raster, "_rows_to_channels_plain"), (render, "composite_tiles_ref"),
-               (tile_raster, "_fwd_slab"))
-    twins = tuple(n for _, n in patched[:-1])
+               (tile_raster, "_fwd_slab"), (render, "tile_bin"), (mapper, "tile_bin"))
+    twins = tuple(n for _, n in patched[:4])
     twin_calls = {n: 0 for n in twins}
-    saved = {n: getattr(mod, n) for mod, n in patched}
-    saved_render = SyntheticDataset._render_pose
+    saved = {(mod.__name__, n): getattr(mod, n) for mod, n in patched}
+    saved_render, saved_refine = SyntheticDataset._render_pose, SLAM.refine
     in_gt = threading.local()
     gt = {"renders": 0, "slab_fwd": 0}
+    bins = {"render": 0, "mapper": 0}
+    reads = {}
+    refine = {"calls": 0, "iters": 0, "s": 0.0, "tile_bin": 0, "geometry": None,
+              "launches": {k.__name__: 0 for k in counted}}
 
-    def count_twin(name):
+    def count_twin(mod, name):
         def call(*a, **kw):
             twin_calls[name] += 1
-            return saved[name](*a, **kw)
+            return saved[(mod.__name__, name)](*a, **kw)
+        return call
+
+    def count_bin(mod, where):
+        def call(*a, **kw):
+            bins[where] += 1
+            return saved[(mod.__name__, "tile_bin")](*a, **kw)
         return call
 
     def fwd_slab(*a, **kw):
         if getattr(in_gt, "on", False) and a[0].is_cuda:
             gt["slab_fwd"] += 1
-        return saved["_fwd_slab"](*a, **kw)
+        return saved[(tile_raster.__name__, "_fwd_slab")](*a, **kw)
 
     def render_pose(self, *a, **kw):
         in_gt.on = True
@@ -740,7 +784,23 @@ def system_phase(smi: str) -> dict:
         finally:
             in_gt.on = False
 
-    reads = {}
+    def refine_counted(self, iters=None):
+        if refine["geometry"] is None:
+            refine["geometry"] = {k: v.clone() for k, v in self.state.gmap.params.items()
+                                  if k not in mapper.REFINE_LEAVES}
+        torch.cuda.synchronize()
+        before = {k.__name__: k.launches for k in counted}
+        bins0 = sum(bins.values())
+        t0 = time.perf_counter()
+        saved_refine(self, iters)
+        torch.cuda.synchronize()
+        refine["s"] += time.perf_counter() - t0
+        refine["calls"] += 1
+        refine["iters"] += self.mcfg.refine_iters if iters is None else iters
+        refine["tile_bin"] += sum(bins.values()) - bins0
+        for k in counted:
+            refine["launches"][k.__name__] += k.launches - before[k.__name__]
+
     sync_warn = "called a synchronizing CUDA operation"
 
     def on_warning(message, category, filename, lineno, file=None, line_=None):
@@ -756,10 +816,13 @@ def system_phase(smi: str) -> dict:
                 break
         reads[stage] = reads.get(stage, 0) + 1
 
-    for mod, n in patched[:-1]:
-        setattr(mod, n, count_twin(n))
+    for mod, n in patched[:4]:
+        setattr(mod, n, count_twin(mod, n))
     tile_raster._fwd_slab = fwd_slab
+    render.tile_bin = count_bin(render, "render")
+    mapper.tile_bin = count_bin(mapper, "mapper")
     SyntheticDataset._render_pose = render_pose
+    SLAM.refine = refine_counted
     t0 = time.perf_counter()
     try:
         with warnings.catch_warnings():
@@ -767,22 +830,31 @@ def system_phase(smi: str) -> dict:
             warnings.showwarning = on_warning
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                out = slam_main(SYSTEM_ARGV)
+                out = slam_main(argv)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
     finally:
         for mod, n in patched:
-            setattr(mod, n, saved[n])
+            setattr(mod, n, saved[(mod.__name__, n)])
         SyntheticDataset._render_pose = saved_render
+        SLAM.refine = saved_refine
     torch.cuda.synchronize()
-    phase_s = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in counted}
-    slam = out["slam"]
+    return out, {"phase_s": time.perf_counter() - t0,
+                 "launches": {k.__name__: k.launches for k in counted},
+                 "twin_calls": twin_calls, "gt": gt, "reads": reads, "refine": refine}
 
+
+def check_run(out: dict, c: dict, smi: str, path: str) -> dict:
+    """The checks every command-line phase shares, with their lines: poses
+    finite, the PLY equal to the map, the slab kernels launched, the ground
+    truth rendered through slab_fwd, both backends "slab", no plain twin or
+    dense oracle called and nothing off the card. -> a few figures."""
+    import numpy as np
+    from monogs_torch.utils.ply import load_ply
+
+    slam, launches, gt = out["slam"], c["launches"], c["gt"]
     poses = np.stack([np.concatenate([R.ravel(), t]) for R, t in slam.est_poses.values()])
     finite = bool(np.isfinite(poses).all())
-    with open(os.path.join(out["save_dir"], "psnr", "final", "final_result.json")) as f:
-        ev = json.load(f)
     ply = load_ply(os.path.join(out["save_dir"], "point_cloud", "final", "point_cloud.ply"))
     active = slam.state.gmap.active
     xyz_map = slam.state.gmap.params["xyz"][active].cpu().numpy()
@@ -790,14 +862,64 @@ def system_phase(smi: str) -> dict:
     on_card = [k for k, v in slam.state.gmap.params.items() if not v.is_cuda] + [
         f for f, v in zip(slam.state.window.frames._fields, slam.state.window.frames)
         if not v.is_cuda]
+    n_tracked, n_kf = len(slam.metrics["tracking_iters"]), out["n_keyframes"] - 1
+    reads = c["reads"]
+    line(path, host_reads=repr(reads),
+         reads_per_tracked_frame=reads.get("tracking", 0) / n_tracked,
+         reads_per_keyframe=reads.get("keyframe", 0) / max(n_kf, 1),
+         note="read counts taken under torch.cuda.set_sync_debug_mode; "
+              "the frame-load reads are the GT renders' image reads")
+    line("launches", path=path, gt_renders=gt["renders"], gt_slab_fwd=gt["slab_fwd"],
+         twin_calls=sum(c["twin_calls"].values()), **launches)
+    line(path, ply_vertices=ply["xyz"].shape[0], num_active=out["map_active"],
+         ply_matches_map=ply_ok, poses_finite=finite, card=repr(smi))
+    require(finite, f"{path}: a frame's pose is not finite")
+    require(ply_ok, f"{path}: the PLY is empty or disagrees with the map")
+    require(launches["slab_fwd"] > 0 and launches["slab_bwd"] > 0
+            and launches["rows_to_channels"] > 0 and launches["tile_order"] > 0,
+            f"{path}: a kernel of the system path did not launch")
+    require(gt["renders"] >= out["n_frames"] and gt["slab_fwd"] >= gt["renders"],
+            f"{path}: the ground truth did not render through slab_fwd")
+    require(slam.tcfg.backend == slam.mcfg.backend == "slab",
+            f"{path}: the system ran backends {slam.tcfg.backend!r} / "
+            f"{slam.mcfg.backend!r}, not 'slab'")
+    require(not any(c["twin_calls"].values()) and not on_card,
+            f"{path}: the system path touched CPU tensors: twins {c['twin_calls']}, "
+            f"off the card {on_card}")
+    return {"n_tracked": n_tracked, "n_kf": n_kf}
+
+
+def system_phase(smi: str) -> tuple[dict, dict]:
+    """Phase 9: the synchronous SLAM system on the card, through the
+    command line's main() in this process: 16 frames of
+    configs/synthetic/room.yaml at its full width (640x480, the 150,000-
+    Gaussian room, tracking 100 / mapping 150 / init 1,050 iterations,
+    window 8, entry capacity 225,280), --eval, then --refine-curve 0,400:
+    the map evaluated, refined 400 colours-only iterations and evaluated
+    again. Fails on a non-finite pose, ATE >= 0.05 m, PSNR <= 15 dB before
+    the refinement, a refined PSNR more than 1 dB under it, a geometry leaf
+    that the refinement moved, a refinement that did not launch slab_fwd
+    and slab_bwd once an iteration and tile_bin once a span, more than 3
+    host reads in it, and on check_run's checks.
+    -> (each kernel's launches in the frame loop and evals, in the
+    refinement)."""
+    import torch
+    from monogs_torch.slam.mapper import refine_span
+
+    out, c = drive_cli(SYSTEM_ARGV)
+    slam, stages, rf = out["slam"], out["stages"], c["refine"]
+    figures = check_run(out, c, smi, "system")
     its = slam.metrics["tracking_iters"]
-    stages = out["stages"]
-    n_tracked, n_kf = len(its), out["n_keyframes"] - 1
+    curve = {e["iters"]: e for e in out["refine_curve"]}
+    before, after = curve[0], curve[REFINE_ITERS]
+    with open(os.path.join(out["save_dir"], "psnr", "refine0", "final_result.json")) as f:
+        ev = json.load(f)
     track_ms = sum(stages[k]["total_s"] for k in ("track.dispatch", "track.readback")) \
-        / n_tracked * 1e3
-    kf_ms = sum(v["total_s"] for k, v in stages.items() if k.startswith("kf.")) / n_kf * 1e3
+        / figures["n_tracked"] * 1e3
+    kf_ms = sum(v["total_s"] for k, v in stages.items() if k.startswith("kf.")) \
+        / figures["n_kf"] * 1e3
     line("system", config=SYSTEM_ARGV[1], frames=out["n_frames"], fps=out["fps"],
-         wall_s=out["wall_s"], phase_s=f"{phase_s:.1f}", host_cpu=repr(host_cpu()),
+         wall_s=out["wall_s"], phase_s=f"{c['phase_s']:.1f}", host_cpu=repr(host_cpu()),
          host_cpus=os.cpu_count(), card=repr(smi))
     line("system", ate_rmse=out["final_ate_rmse"], psnr=ev["mean_psnr"], ssim=ev["mean_ssim"],
          eval_frames=ev["n_frames"], train_view_inflated=ev.get("train_view_inflated", False),
@@ -810,32 +932,91 @@ def system_phase(smi: str) -> dict:
     for k, v in sorted(stages.items()):
         print(f"  stage: {k:18s} n={v['n']:3d} total_s={v['total_s']:.3f} "
               f"mean_ms={v['mean_ms']:.2f}")
-    line("system", host_reads=repr(reads),
-         reads_per_tracked_frame=reads.get("tracking", 0) / n_tracked,
-         reads_per_keyframe=reads.get("keyframe", 0) / n_kf,
-         note="read counts taken under torch.cuda.set_sync_debug_mode; "
-              "the frame-load reads are the GT renders' image reads")
-    line("launches", path="system", gt_renders=gt["renders"], gt_slab_fwd=gt["slab_fwd"],
-         twin_calls=sum(twin_calls.values()), **launches)
-    line("system", ply_vertices=ply["xyz"].shape[0], num_active=out["map_active"],
-         ply_matches_map=ply_ok, poses_finite=finite, card=repr(smi))
-    require(finite, "a frame's pose is not finite")
+
+    # The refinement: geometry untouched, one binning a span, one launch of
+    # each slab kernel an iteration, sparse reads; then 8 more iterations
+    # (one span) under the profiler, after the counts are read.
+    geometry_same = all(torch.equal(v, slam.state.gmap.params[k])
+                        for k, v in rf["geometry"].items())
+    n_spans = -(-REFINE_ITERS // REFINE_SPAN)
+    refine_reads = c["reads"].get("refine", 0)
+    line("refine", iters=rf["iters"], calls=rf["calls"],
+         ms_per_iter=rf["s"] * 1e3 / max(rf["iters"], 1),
+         psnr_before=before["psnr"], psnr_after=after["psnr"], ssim_before=before["ssim"],
+         ssim_after=after["ssim"], refine_overflow_max=out.get("refine_overflow_max"),
+         tile_bin=rf["tile_bin"], host_reads=refine_reads, geometry_bit_identical=geometry_same,
+         card=repr(smi))
+    line("launches", path="refine", **rf["launches"])
+    kf = sorted(slam.kf_history)[0]
+    frame = slam._fetch_frame_at_pose(kf)
+    prof = device_profile(
+        lambda: refine_span(slam.state, frame, slam.intr, slam.mcfg, REFINE_SPAN), REFINE_SPAN)
+    if prof is not None:
+        line("profile", path="refine", iters=REFINE_SPAN,
+             **{k: v for k, v in prof.items() if k != "top"},
+             idle_share=1.0 - prof["device_busy_ms_per_iter"] / prof["wall_ms_per_iter"],
+             card=repr(smi))
+        for op, op_ms, calls in prof["top"]:
+            print(f"  device: {op_ms:.4f} ms/iter  {calls:7.2f} calls/iter  {op}")
+
     require(out["final_ate_rmse"] < SYSTEM_ATE_MAX,
             f"ATE {out['final_ate_rmse']:.4f} m is not under {SYSTEM_ATE_MAX}")
     require(ev["mean_psnr"] > SYSTEM_PSNR_MIN,
             f"PSNR {ev['mean_psnr']:.2f} dB is not over {SYSTEM_PSNR_MIN}")
-    require(ply_ok, "the PLY is empty or disagrees with the map")
-    require(launches["slab_fwd"] > 0 and launches["slab_bwd"] > 0
-            and launches["rows_to_channels"] > 0 and launches["tile_order"] > 0,
-            "a kernel of the system path did not launch")
-    require(gt["renders"] >= 16 and gt["slab_fwd"] >= gt["renders"],
-            "the ground truth did not render through slab_fwd")
-    require(slam.tcfg.backend == slam.mcfg.backend == "slab",
-            f"the system ran backends {slam.tcfg.backend!r} / {slam.mcfg.backend!r}, "
-            "not 'slab'")
-    require(not any(twin_calls.values()) and not on_card,
-            f"the system path touched CPU tensors: twins {twin_calls}, off the card {on_card}")
-    return launches
+    require(rf["iters"] == REFINE_ITERS and after["psnr"] > before["psnr"] - REFINE_PSNR_DROP,
+            f"refinement: {rf['iters']} iterations, PSNR {before['psnr']:.3f} -> "
+            f"{after['psnr']:.3f} dB")
+    require(geometry_same, "colours-only refinement moved a geometry leaf")
+    require(rf["launches"]["slab_fwd"] == rf["launches"]["slab_bwd"] == REFINE_ITERS
+            and rf["tile_bin"] == n_spans,
+            f"refinement launched slab_fwd / slab_bwd {rf['launches']['slab_fwd']} / "
+            f"{rf['launches']['slab_bwd']} times and ran tile_bin {rf['tile_bin']} times, "
+            f"not {REFINE_ITERS} / {REFINE_ITERS} / {n_spans}")
+    require(refine_reads <= REFINE_READS_MAX,
+            f"refinement made {refine_reads} host reads (at most {REFINE_READS_MAX})")
+    require(prof is not None, "the profiler saw no device work in the refinement")
+    loop = {k: v - rf["launches"][k] for k, v in c["launches"].items()}
+    return loop, rf["launches"]
+
+
+def mono_phase(smi: str) -> dict:
+    """Phase 10: the monocular system on the card, through the command
+    line's main() in this process: 11 frames of
+    configs/synthetic/room_mono.yaml (room.yaml without sensor depth, with
+    isotropic Gaussians) with --eval --ate-align-scale. Fails on an ATE
+    that is not finite or not under twice the summed ground-truth motion,
+    100 active Gaussians or fewer, PSNR <= 10 dB, and on check_run's
+    checks. -> each kernel's launches in the phase."""
+    import numpy as np
+
+    out, c = drive_cli(MONO_ARGV)
+    slam = out["slam"]
+    check_run(out, c, smi, "mono")
+    with open(os.path.join(out["save_dir"], "psnr", "final", "final_result.json")) as f:
+        ev = json.load(f)
+    with open(os.path.join(out["save_dir"], "plot", "stats_aligned_scale.json")) as f:
+        ate_scale = json.load(f)["rmse"]
+    # The summed motion as tests/test_slam_e2e.py:181-186 sums it.
+    gt = [slam.gt_poses[i][1] for i in sorted(slam.gt_poses)]
+    motion = float(sum(np.linalg.norm(b - a) for a, b in zip(gt, gt[1:])))
+    ate = out["final_ate_rmse"]
+    line("mono", config=MONO_ARGV[1], frames=out["n_frames"], fps=out["fps"],
+         wall_s=out["wall_s"], phase_s=f"{c['phase_s']:.1f}", monocular=slam.mcfg.monocular,
+         card=repr(smi))
+    line("mono", ate_rmse=ate, ate_scale_aligned=ate_scale, gt_motion=motion,
+         psnr=ev["mean_psnr"], ssim=ev["mean_ssim"], eval_frames=ev["n_frames"],
+         active=out["map_active"], keyframes=out["n_keyframes"],
+         kf_history=sorted(slam.kf_history),
+         tracking_iters_mean=out["tracking_iters_mean"], init_s=out["stages"]["init"]["total_s"])
+    require(slam.mcfg.monocular and slam.dataset[0].get("depth") is None,
+            "phase 10 did not run the monocular path")
+    require(np.isfinite(ate) and ate < 2.0 * motion,
+            f"mono ATE {ate} is not finite and under twice the motion {motion:.4f}")
+    require(out["map_active"] > MONO_ACTIVE_MIN,
+            f"mono map has {out['map_active']} active Gaussians")
+    require(ev["mean_psnr"] > MONO_PSNR_MIN,
+            f"mono PSNR {ev['mean_psnr']:.2f} dB is not over {MONO_PSNR_MIN}")
+    return c["launches"]
 
 
 def pose_error(R, t, R_gt, t_gt) -> tuple[float, float]:
@@ -1094,11 +1275,15 @@ def main() -> int:
     # 6-8. The mapping path, its kernels and the roofline probe.
     report = mapping_phases(dev, smi, launches, track_slab)
 
-    # 9. The SLAM system through its command line.
-    sys_launches = system_phase(smi)
+    # 9. The SLAM system through its command line, with the refinement;
+    # 10. the monocular system.
+    sys_launches, refine_launches = system_phase(smi)
+    mono_launches = mono_phase(smi)
     for row in report:
-        row["launches_system"] = sys_launches[row["name"]]
-        row["launches"] += sys_launches[row["name"]]
+        for path, counts in (("system", sys_launches), ("refine", refine_launches),
+                             ("mono", mono_launches)):
+            row[f"launches_{path}"] = counts[row["name"]]
+            row["launches"] += counts[row["name"]]
     line("done", total_s=f"{time.perf_counter() - t_start:.1f}")
 
     print(smi)

@@ -3,12 +3,16 @@ slam.py's synchronous path).
 
     python -m monogs_torch --config configs/synthetic/room.yaml --eval
     python -m monogs_torch --config configs/synthetic/cpu_smoke.yaml --device cpu --eval
+    python -m monogs_torch --config configs/synthetic/room.yaml --refine-curve 0,400
+    python -m monogs_torch --config configs/synthetic/room_mono.yaml --ate-align-scale
 
 Creates <Results.save_dir>/<dataset type>_<scene>/<timestamp>/ with the
-merged config (config.yml), runs `SLAM.run`, optionally the rendering
-evaluation (PSNR / SSIM over every 5th non-keyframe frame) and the aligned
-ATEs, and writes the final PLY and metrics.json (the JAX CLI's keys).
-`main(argv)` returns the metrics.json dict.
+merged config (config.yml), runs `SLAM.run`, then the colour refinement
+(--refine N iterations; --refine-curve refines on to each cumulative
+milestone and evaluates there, into refine_curve.json), optionally the
+rendering evaluation (PSNR / SSIM over every 5th non-keyframe frame) and
+the aligned ATEs, and writes the final PLY and metrics.json (the JAX CLI's
+keys). `main(argv)` returns the metrics.json dict.
 """
 
 from __future__ import annotations
@@ -36,6 +40,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device of the run (default cuda; cpu runs the "
                          "kernels' plain twins)")
+    ap.add_argument("--refine", type=int, default=0,
+                    help="colour refinement iterations after the frame loop")
+    ap.add_argument("--refine-curve", default=None, metavar="N1,N2,...",
+                    help="refine on to each cumulative milestone (counting --refine) "
+                         "and evaluate PSNR / SSIM there; writes refine_curve.json")
     ap.add_argument("--ate-align", action="store_true",
                     help="also report the ATE after an Umeyama alignment")
     ap.add_argument("--ate-align-scale", action="store_true",
@@ -93,6 +102,22 @@ def main(argv: list[str] | None = None) -> dict:
                 device=device)
     slam.prewarm()
     rmse = slam.run(n_frames=args.n_frames)
+    if args.refine:
+        slam.refine(iters=args.refine)
+    refine_curve = []
+    if args.refine_curve:
+        done = args.refine
+        for m in sorted(int(x) for x in args.refine_curve.split(",")):
+            if m > done:
+                slam.refine(iters=m - done)
+                done = m
+            r = slam.eval_rendering(every=5, label=f"refine{m}")
+            refine_curve.append({"iters": m, "psnr": float(r["mean_psnr"]),
+                                 "ssim": float(r["mean_ssim"])})
+            Log(f"refine {m}: PSNR {r['mean_psnr']:.2f} SSIM {r['mean_ssim']:.3f}",
+                tag="Eval")
+        with open(os.path.join(save_dir, "refine_curve.json"), "w") as f:
+            json.dump(refine_curve, f, indent=1)
 
     eval_res = None
     if args.eval or config.get("Results", {}).get("eval_rendering", False):
@@ -117,13 +142,17 @@ def main(argv: list[str] | None = None) -> dict:
         "n_keyframes": len(slam.kf_history),
         "map_active": int(slam.state.gmap.num_active),
         "mode": "sync",
-        "refine_iters": 0,
+        "refine_iters": args.refine,
     }
     if eval_res is not None:
         summary["psnr"] = float(eval_res["mean_psnr"])
         summary["ssim"] = float(eval_res["mean_ssim"])
         if eval_res.get("train_view_inflated"):
             summary["psnr_train_view_inflated"] = True
+    if refine_curve:
+        summary["refine_curve"] = refine_curve
+    if "refine_overflow_max" in slam.metrics:
+        summary["refine_overflow_max"] = slam.metrics["refine_overflow_max"]
     summary["stages"] = profiling.summary()
     with open(os.path.join(save_dir, "metrics.json"), "w") as f:
         json.dump(summary, f, indent=1)

@@ -117,7 +117,7 @@ def render_projected(
         feats = pack_features(torch.stack([u, v], dim=-1),
                               torch.stack(conic_ch, dim=-1), opacity, rgbs,
                               proj.depth, bins.index_matrix)   # (T, K, 16)
-        out, touched = composite_tiles_ref(feats, cfg)
+        out, touched = composite_tiles_ref(feats, cfg, with_n_touched)
     else:
         feats_cm = pack_features_slab(
             u, v, *conic_ch, opacity, rgbs, proj.depth,
@@ -280,7 +280,7 @@ def render_window(
             torch.stack([u[w], v[w]], dim=-1),
             torch.stack([c[w] for c in conic_ch], dim=-1), opa[w], rgbs,
             proj.depth[w], bins.index_matrix[w]) for w in range(Wn)])
-        out, touched = composite_tiles_ref(feats, cfg)
+        out, touched = composite_tiles_ref(feats, cfg, with_n_touched)
     else:
         feats = pack_features_window(
             u, v, *conic_ch, opa, proj.depth, rgbs[:, 0], rgbs[:, 1],

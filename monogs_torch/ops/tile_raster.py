@@ -147,32 +147,49 @@ def warm_cpu_math() -> None:
 # ---------------------------------------------------------------------------
 
 
-def composite_tiles_ref(feats: torch.Tensor, cfg: RasterConfig):
+def composite_tiles_ref(feats: torch.Tensor, cfg: RasterConfig, with_touched: bool = True):
     """Vectorised dense compositing, differentiable by autograd.
 
-    feats: (T, K, 16) -> (out (T, P, 8), touched (T, K) int32)
+    feats: (T, K, 16) -> (out (T, P, 8), touched (T, K) int32, or None
+    without with_touched)
+
+    A slot of zero opacity has zero alpha, so it neither adds to a pixel
+    nor moves its transmittance; each tile's result depends on its own
+    slots alone. So only the tiles that hold a slot of nonzero opacity are
+    composited, over their first K' slots, K' the last such slot rounded
+    up to a multiple of 32 (one host read finds both): every other tile,
+    such as all of a zero-pose padding slot of a keyframe window, composites
+    to zeros and touches nothing. The results are those of the whole
+    (T, K) computation, bit for bit.
     """
-    T = feats.shape[0]
+    T, K = feats.shape[:2]
     dev = feats.device
+    used = (feats[..., 5].ne(0) * torch.arange(1, K + 1, device=dev)).amax(1).cpu()
+    live = torch.nonzero(used).squeeze(1).to(dev)
+    k_live = min(K, -(-int(used.max()) // 32) * 32) if T else 0
     px, py = _tile_pixel_coords(cfg, dev, feats.dtype)
     ox, oy = _tile_origins(cfg, T, dev, feats.dtype)
-    f = feats.permute(2, 0, 1)[:, :, None, :]          # (16, T, 1, K)
+    ox, oy, fl = ox[live], oy[live], feats.index_select(0, live)[:, :k_live]
+    f = fl.permute(2, 0, 1)[:, :, None, :]             # (16, T', 1, K')
     u = f[0] - ox[:, None, None]
     v = f[1] - oy[:, None, None]
     _, _, _, _, ok, alpha = _alpha(u, v, f[2], f[3], f[4], f[5],
-                                   px[:, None], py[:, None])    # (T, P, K)
+                                   px[:, None], py[:, None])    # (T', P, K')
     one_m = 1.0 - alpha
     Tk = torch.cumprod(torch.cat([torch.ones_like(one_m[..., :1]),
                                   one_m[..., :-1]], dim=-1), dim=-1)
     w = alpha * Tk
-    colors = torch.stack([feats[..., 6], feats[..., 7], feats[..., 8],
-                          feats[..., 9], torch.ones_like(feats[..., 9])], -1)
-    acc = torch.matmul(w, colors)                        # (T, P, 5)
-    out = torch.cat([acc, torch.zeros_like(acc[..., :3])], dim=-1)
+    colors = torch.stack([fl[..., 6], fl[..., 7], fl[..., 8],
+                          fl[..., 9], torch.ones_like(fl[..., 9])], -1)
+    acc = torch.matmul(w, colors)                        # (T', P, 5)
+    out = feats.new_zeros((T, cfg.pixels, 8)).index_copy(
+        0, live, torch.cat([acc, torch.zeros_like(acc[..., :3])], dim=-1))
+    if not with_touched:
+        return out, None
     valid = _pix_valid(cfg, ox, oy, px, py)
-    touched = (ok & (Tk > TOUCH_T_MIN) & valid[:, :, None]).sum(
-        1, dtype=torch.int32)
-    return out, touched
+    touched = (ok & (Tk > TOUCH_T_MIN) & valid[:, :, None]).sum(1, dtype=torch.int32)
+    return out, torch.zeros((T, K), dtype=torch.int32, device=dev).index_copy(
+        0, live, torch.nn.functional.pad(touched, (0, K - k_live)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Mapper: keyframe-window Gaussian optimisation (port of
-monogs_tpu/slam/mapper.py, through `run_optimize_map`).
+"""Mapper: keyframe-window Gaussian optimisation and the final colour
+refinement (port of monogs_tpu/slam/mapper.py).
 
 One mapping iteration (`_mapping_iter`) renders every window keyframe with
 `render_window` (one launch of each slab kernel for the whole window), sums
@@ -11,7 +11,8 @@ cadence events as a Python loop with the JAX program's segment structure:
 re-bin every `rebin_every` iterations, on frozen bins in between. The
 cadence events (densify, opacity resets, visibility, covisibility prune,
 extend) are separate calls that rewrite the static-capacity map with masked
-writes.
+writes. The refinement (`refine_span`, `refine_chunk`) steps the map alone
+against one keyframe at a time.
 
 Host syncs. The JAX span is one device program. Here, with
 `converged_eps <= 0` a span makes no host read at all; with
@@ -36,8 +37,10 @@ import torch
 from ..models import gaussian_map as gm
 from ..models.optim import AdamState, adam_step, expon_lr, init_adam
 from ..ops import lie
+from ..ops.binning import tile_bin
 from ..ops.graphics import Intrinsics
-from ..ops.losses import get_loss_mapping
+from ..ops.losses import get_loss_mapping, l1_loss, ssim
+from ..ops.projection import project_gaussians_ch
 from ..ops.render import (
     bin_window,
     make_raster_config,
@@ -53,8 +56,8 @@ log = logging.getLogger(__name__)
 
 @dataclasses.dataclass(frozen=True)
 class MapperConfig:
-    """Mapping hyperparameters; the defaults are the JAX package's. The
-    refinement's fields come with the refinement."""
+    """Mapping and refinement hyperparameters; the defaults are the JAX
+    package's."""
 
     init_itr_num: int = 1050
     init_gaussian_update: int = 100
@@ -84,6 +87,16 @@ class MapperConfig:
     lr_trans: float = 0.001 * 0.5
     lr_exposure: float = 0.01
     pose_adam_eps: float = 1e-8
+    # Refinement. All-params refinement renders at these eval-grade caps:
+    # refining geometry against renders truncated at the loop's caps
+    # widens and darkens the splats around the truncated tiles, which
+    # truncates more. Colours-only refinement (the default) freezes the
+    # geometry, so it keeps the loop's caps and exact bins per span.
+    refine_iters: int = 26000
+    lambda_ssim: float = 0.2
+    refine_tile_capacity: int = 4096
+    refine_max_dup: int = 32
+    refine_colors_only: bool = True
     tile_size: int = 32
     tile_capacity: int = 1024
     max_dup: int = 4
@@ -473,6 +486,104 @@ def extend_event(state: MapperState, frame: Frame, kf_idx, intr: Intrinsics,
         point_size=cfg.point_size, max_new=cfg.max_new_per_kf,
         scores_u=scores_u, depth_noise=depth_noise)
     return state._replace(gmap=res.map, adam=res.adam), (res.n_added, res.n_dropped)
+
+
+# ---------------------------------------------------------------------------
+# Refinement: colour refinement of the final map over its keyframes.
+# ---------------------------------------------------------------------------
+
+REFINE_LEAVES = ("rgb", "opacity_logit")   # what colours-only refinement moves
+
+
+def _refine_iter(state: MapperState, frame: Frame, intr: Intrinsics,
+                 cfg: MapperConfig, bins=None):
+    """One refinement iteration on one keyframe: (1 - lambda_ssim) L1 +
+    lambda_ssim (1 - SSIM) of the exposure-corrected render against the
+    keyframe's rgb, then the masked Adam on the Gaussians (the learning
+    rates continue the mapping schedule at nr_iters).
+
+    Colours-only (the default): only rgb and opacity_logit take gradients;
+    the other leaves get zero gradients and lr 0, so warm moments from the
+    mapping loop cannot move the geometry, while Adam still steps (and
+    decays) every leaf's moments as the JAX package's does. It renders at
+    the loop's caps; all-params mode at the eval-grade caps.
+    -> (state, overflow as a () device tensor)."""
+    gmap = state.gmap
+    if cfg.refine_colors_only:
+        opt, caps = REFINE_LEAVES, _render_caps(cfg)
+    else:
+        opt = tuple(gmap.params)
+        caps = dict(tile_capacity=max(cfg.tile_capacity, cfg.refine_tile_capacity),
+                    max_dup=max(cfg.max_dup, cfg.refine_max_dup), max_dup_gen=None,
+                    entry_capacity=None)
+    params = {k: v.detach().requires_grad_() if k in opt else v
+              for k, v in gmap.params.items()}
+    out = render(params["xyz"], gm.get_scales(params, cfg.isotropic), params["quats"],
+                 gm.get_opacity(params), params["rgb"], frame.R, frame.t, intr,
+                 active=gmap.active, tile_size=cfg.tile_size, backend=cfg.backend,
+                 bins=bins, with_n_touched=False, **caps)
+    rgb = torch.exp(frame.exposure_a) * out.rgb + frame.exposure_b
+    loss = ((1.0 - cfg.lambda_ssim) * l1_loss(rgb, frame.rgb)
+            + cfg.lambda_ssim * (1.0 - ssim(rgb, frame.rgb)))
+    g_opt = torch.autograd.grad(loss, [params[k] for k in opt])
+
+    with torch.no_grad():
+        grads = dict(zip(opt, g_opt))
+        act, C = gmap.active, gmap.capacity
+        grads = {k: torch.where(act.reshape((C,) + (1,) * (v.dim() - 1)), grads[k],
+                                torch.zeros_like(v)) if k in grads else torch.zeros_like(v)
+                 for k, v in gmap.params.items()}
+        lrs = cfg.map_lrs(state.nr_iters)
+        if cfg.refine_colors_only:
+            lrs = {k: v if k in opt else 0.0 for k, v in lrs.items()}
+        new_params, new_adam = adam_step(gmap.params, grads, state.adam, lrs)
+    return state._replace(gmap=gmap._replace(params=new_params), adam=new_adam,
+                          nr_iters=state.nr_iters + 1), out.overflow
+
+
+# Eager PyTorch has no jit: the single-iteration entry point is the
+# iteration itself.
+refine_step = _refine_iter
+
+
+def refine_chunk(state: MapperState, frames: Frame, intr: Intrinsics,
+                 cfg: MapperConfig):
+    """One refinement iteration on each of B stacked frames (a Frame with a
+    leading batch axis), in order. -> (state, max overflow on the
+    device)."""
+    ov_max = torch.zeros((), dtype=torch.int32, device=state.gmap.active.device)
+    for i in range(frames.frame_idx.shape[0]):
+        state, ov = _refine_iter(state, Frame(*(x[i] for x in frames)), intr, cfg)
+        ov_max = torch.maximum(ov_max, ov)
+    return state, ov_max
+
+
+def refine_span(state: MapperState, frame: Frame, intr: Intrinsics,
+                cfg: MapperConfig, n_iters: int):
+    """n_iters colours-only refinement iterations on one keyframe, tile-
+    binned once at the span's starting state (colours-only refinement
+    freezes the geometry, so only the opacity cull drifts within a span);
+    each iteration re-projects, since the opacities move, and reuses the
+    bins. -> (state, max overflow over the span on the device)."""
+    gmap = state.gmap
+    with torch.no_grad():
+        z3 = torch.zeros(3, device=gmap.active.device)
+        proj = project_gaussians_ch(
+            gmap.params["xyz"], gm.get_scales(gmap.params, cfg.isotropic),
+            gmap.params["quats"], gm.get_opacity(gmap.params), frame.R, frame.t, z3, z3,
+            intr, active=gmap.active)
+        bins = tile_bin(
+            None, proj.radius, proj.depth, proj.valid, img_w=intr.width,
+            img_h=intr.height, tile_size=cfg.tile_size, tile_capacity=cfg.tile_capacity,
+            max_dup=cfg.max_dup, entry_capacity=cfg.entry_capacity,
+            opacity=torch.where(proj.valid, proj.opacity, torch.zeros_like(proj.opacity)),
+            conic=(proj.ca, proj.cb, proj.cc), uv=(proj.u, proj.v),
+            max_dup_gen=cfg.max_dup_gen)
+    ov_max = torch.zeros((), dtype=torch.int32, device=gmap.active.device)
+    for _ in range(n_iters):
+        state, ov = _refine_iter(state, frame, intr, cfg, bins=bins)
+        ov_max = torch.maximum(ov_max, ov)
+    return state, ov_max
 
 
 # ---------------------------------------------------------------------------

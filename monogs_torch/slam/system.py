@@ -8,22 +8,26 @@ the keyframe window and prunes. Everything runs on the SLAM `device`
 (default "cuda"): a CUDA device runs the hand-written kernels; the CPU runs
 their plain twins and is for tests. Nothing moves to the CPU on its own.
 
+After the frame loop, `refine` refines the map's colours over the
+keyframes.
+
 Host reads, as in the JAX package: one (22,) `host_stats` read per
 tracked frame (the tracker's convergence exit reads one bool per
-iteration besides), one read of `window_host_pack` per keyframe.
+iteration besides), one read of `window_host_pack` per keyframe, and in
+`refine` one overflow read every 200 iterations and one at the end.
 
 Not carried over from the JAX package: the concurrent tracker / mapper
-mode, checkpoints and resume, the refinement, the viewer and the multi-
-device paths (ROADMAP Queue 1), and the background compiles of `prewarm`
-and the demand re-probes (eager PyTorch has no compile step: a re-probe
-adopts a larger entry capacity at once, and `prewarm` builds the CUDA
-kernels).
+mode, checkpoints and resume, the viewer and the multi-device paths
+(ROADMAP Queue 1), and the background compiles of `prewarm` and the
+demand re-probes (eager PyTorch has no compile step: a re-probe adopts a
+larger entry capacity at once, and `prewarm` builds the CUDA kernels).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import random
 import time
 
 import numpy as np
@@ -52,6 +56,9 @@ from .mapper import (
     extend_event,
     init_mapper_state,
     init_pose_adam,
+    refine_chunk,
+    refine_span,
+    refine_step,
     run_initialize_map,
     run_optimize_map,
     unpack_window_host,
@@ -445,19 +452,24 @@ class SLAM:
                                      float(w["exposure_b"][slot]))
                 self.vis_dict[i] = vis[slot]
 
+    def _fetch_frames_at_pose(self, idxs) -> list[Frame]:
+        """Frames idxs with their current pose and exposure estimates
+        applied, on the SLAM device; the estimates of all of them go to the
+        device in one copy."""
+        frames = [self.frames[i] if i in self.frames else self._load_frame(i)
+                  for i in idxs]
+        host = np.zeros((len(idxs), 14), np.float32)
+        for row, i in zip(host, idxs):
+            R, t = self.est_poses[i]
+            row[:9], row[9:12] = np.asarray(R).ravel(), t
+            row[12:] = [float(e) for e in self.exposures.get(i, (0.0, 0.0))]
+        est = torch.as_tensor(host, device=self.device)
+        return [f._replace(R=e[:9].reshape(3, 3), t=e[9:12], exposure_a=e[12],
+                           exposure_b=e[13]) for f, e in zip(frames, est)]
+
     def _fetch_frame_at_pose(self, idx: int) -> Frame:
         """Frame idx with the current pose and exposure estimate applied."""
-        frame = self.frames.get(idx)
-        if frame is None:
-            frame = self._load_frame(idx)
-        R, t = self.est_poses[idx]
-        ea, eb = self.exposures.get(idx, (0.0, 0.0))
-        f32, dev = torch.float32, self.device
-        return frame._replace(
-            R=torch.as_tensor(R, dtype=f32, device=dev),
-            t=torch.as_tensor(t, dtype=f32, device=dev),
-            exposure_a=torch.as_tensor(ea, dtype=f32, device=dev),
-            exposure_b=torch.as_tensor(eb, dtype=f32, device=dev))
+        return self._fetch_frames_at_pose([idx])[0]
 
     def handle_keyframe(self, idx: int, frame: Frame, kf_list=None):
         """Mapper work and its result's application, in one thread."""
@@ -501,6 +513,55 @@ class SLAM:
         self._gc_frames()
         self.metrics["frame_times"].append(time.time() - t0)
         return {"keyframe": create_kf}
+
+    # -- refinement ----------------------------------------------------------
+
+    def refine(self, iters: int | None = None):
+        """Colour refinement of the map after the frame loop: `iters`
+        iterations (default mcfg.refine_iters) on keyframes drawn at random
+        (random.Random(scfg.seed) over sorted(kf_history), the JAX
+        package's draws), each at its refined pose and tracked exposure.
+        The keyframes go to the device once, before the loop. Colours-only
+        (the default): one draw per span of up to 8 iterations, binned once
+        (`refine_span`); all-params: chunks of 8 draws (`refine_chunk`),
+        then single steps. The overflow is read every 200 iterations and at
+        the end, and its maximum kept in metrics["refine_overflow_max"]."""
+        iters = self.mcfg.refine_iters if iters is None else iters
+        rng = random.Random(self.scfg.seed)
+        kf_idxs = sorted(self.kf_history)
+        B = 8
+        done = overflow_max = 0
+        with self._section("refine"):
+            staged = dict(zip(kf_idxs, self._fetch_frames_at_pose(kf_idxs)))
+
+            def draw() -> Frame:
+                return staged[kf_idxs[rng.randrange(len(kf_idxs))]]
+
+            while done < iters:
+                if self.mcfg.refine_colors_only:
+                    n = min(B, iters - done)
+                    self.state, ov = refine_span(self.state, draw(), self.intr,
+                                                 self.mcfg, n)
+                elif iters - done >= B:
+                    batch = [draw() for _ in range(B)]
+                    n = B
+                    self.state, ov = refine_chunk(
+                        self.state, Frame(*(torch.stack(x) for x in zip(*batch))),
+                        self.intr, self.mcfg)
+                else:
+                    n = 1
+                    self.state, ov = refine_step(self.state, draw(), self.intr, self.mcfg)
+                done += n
+                if done % 200 < B or done >= iters:
+                    overflow_max = max(overflow_max, int(ov))
+        if overflow_max and not self.mcfg.refine_colors_only:
+            Log(f"refine renders dropped up to {overflow_max} entries (raise "
+                f"MapperConfig.refine_tile_capacity / refine_max_dup): refined "
+                f"geometry against truncated images", tag="Mapper")
+        elif overflow_max:
+            Log(f"refine (colours only) peak binning drop {overflow_max} "
+                f"entries/render", tag="Mapper")
+        self.metrics["refine_overflow_max"] = overflow_max
 
     # -- evaluation and export -----------------------------------------------
 

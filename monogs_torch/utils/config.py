@@ -96,9 +96,7 @@ def build_tracker_config(cfg: dict, backend: str = "slab"):
 
 
 def build_mapper_config(cfg: dict, backend: str = "slab"):
-    """The MapperConfig of a merged config. The refinement keys
-    (Training.refine_colors_only, opt_params.lambda_ssim) wait with the
-    refinement itself."""
+    """The MapperConfig of a merged config."""
     from ..slam.mapper import MapperConfig
 
     g = lambda *p, d=None: _get(cfg, *p, default=d)
@@ -131,6 +129,7 @@ def build_mapper_config(cfg: dict, backend: str = "slab"):
         rotation_lr=g("opt_params", "rotation_lr", d=1e-3),
         lr_rot=g("Training", "lr", "cam_rot_delta", d=0.003) * 0.5,
         lr_trans=g("Training", "lr", "cam_trans_delta", d=0.001) * 0.5,
+        lambda_ssim=g("opt_params", "lambda_ssim", d=0.2),
         tile_size=g("Raster", "tile_size", d=32),
         tile_capacity=g("Raster", "tile_capacity", d=1024),
         max_dup=g("Raster", "max_dup", d=4),
@@ -140,6 +139,7 @@ def build_mapper_config(cfg: dict, backend: str = "slab"):
         backend=port_backend(backend),
         isotropic=g("Gaussians", "isotropic", d=False),
         isotropic_loss_weight=g("Training", "isotropic_loss_weight", d=0.0),
+        refine_colors_only=g("Training", "refine_colors_only", d=True),
         converged_eps=g("Training", "mapping_converged_eps", d=0.0),
         lambda_depth=g("Training", "lambda_depth", d=0.9),
         converged_patience=g("Training", "mapping_converged_patience", d=4),

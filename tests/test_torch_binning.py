@@ -13,6 +13,8 @@ from monogs_tpu.ops import projection as jproj
 from monogs_tpu.ops.graphics import Intrinsics
 from monogs_torch.ops import binning as tbin
 
+torch.set_num_threads(2)   # the test workers share the CPUs (tests/test_torch_system.py)
+
 W, H = 64, 48
 
 

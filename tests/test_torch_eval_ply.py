@@ -15,6 +15,8 @@ from monogs_tpu.utils import ply as jp
 from monogs_torch.utils import eval as te
 from monogs_torch.utils import ply as tp
 
+torch.set_num_threads(2)   # the test workers share the CPUs (tests/test_torch_system.py)
+
 
 def _rot(rng):
     q = rng.normal(size=4)

@@ -24,6 +24,8 @@ from monogs_torch.models import gaussian_map as tgm
 from monogs_torch.models.optim import AdamState
 from monogs_torch.ops.graphics import Intrinsics as TIntr
 
+torch.set_num_threads(2)   # the test workers share the CPUs (tests/test_torch_system.py)
+
 CAP = 256
 H, W = 24, 32
 INTR = dict(fx=30.0, fy=30.0, cx=W / 2, cy=H / 2, width=W, height=H)

@@ -27,6 +27,8 @@ from monogs_torch.ops.knn import knn_mean_sq_dist as tknn
 from monogs_torch.slam import camera as tcam
 from monogs_torch.utils.convert import frame_from_numpy
 
+torch.set_num_threads(2)   # the test workers share the CPUs (tests/test_torch_system.py)
+
 
 def _t(x):
     return torch.as_tensor(np.array(x))

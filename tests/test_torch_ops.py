@@ -27,6 +27,8 @@ from monogs_torch.ops import projection as tproj
 from monogs_torch.ops.graphics import Intrinsics as TIntr
 from monogs_torch.slam import camera as tcam
 
+torch.set_num_threads(2)   # the test workers share the CPUs (tests/test_torch_system.py)
+
 W, H = 64, 48
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -27,6 +27,8 @@ from monogs_torch.ops import render as trender
 from monogs_torch.ops import tile_raster as ttr
 from monogs_torch.ops.graphics import Intrinsics as TIntr
 
+torch.set_num_threads(2)   # the test workers share the CPUs (tests/test_torch_system.py)
+
 W, H = 64, 48
 TILE = 16
 CAP = 256

@@ -16,6 +16,8 @@ from monogs_torch.ops import kernels
 from monogs_torch.ops import tile_raster as tr
 from monogs_torch.tools import roofline
 
+torch.set_num_threads(2)   # the test workers share the CPUs (tests/test_torch_system.py)
+
 
 def _numpy_chain(x, op, n_rep, lanes):
     f32 = np.float32

@@ -23,6 +23,8 @@ from monogs_tpu.data import synthetic as js
 from monogs_torch.data import synthetic as ts
 from monogs_torch.ops.render import render
 
+torch.set_num_threads(2)   # the test workers share the CPUs (tests/test_torch_system.py)
+
 CALIB = {"width": 64, "height": 48, "fx": 52.0, "fy": 52.0, "cx": 32.0, "cy": 24.0,
          "depth_scale": 1.0}
 

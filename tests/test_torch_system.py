@@ -14,16 +14,12 @@ frame to 1e-5); and on what each keyframe event writes back: the window
 keyframes' poses and exposures within 1e-4, the map's parameters within
 the tolerances stated at `_check_mapper_result`.
 
-Run (in tests/test_torch_system_run.py, so that the two halves take two
-test workers): the port's whole `run()` on that CFG.
-
-CLI: `python -m monogs_torch` on configs/synthetic/cpu_smoke.yaml with
---device cpu --backend slab (the card's path, through the kernels' plain
-twins) --eval writes every artifact.
+The port's whole `run()` on that CFG is tests/test_torch_system_run.py,
+and its command line tests/test_torch_cli.py: each SLAM run has a file,
+and so a test worker, of its own.
 """
 
 import collections
-import json
 import os
 
 import jax
@@ -44,6 +40,13 @@ from monogs_torch.slam import system as tsys
 from monogs_torch.slam import tracker as ttr
 from monogs_torch.utils.config import SystemConfig as TSystemConfig
 from monogs_torch.utils.convert import slam_from_numpy
+
+# The tier-1 run puts several pytest workers on one machine, and torch at
+# its default takes every core in each of them (beside JAX's own pool),
+# which oversubscribes the machine: each port test file that runs a SLAM,
+# a mapper or a render loop caps it at 2 intra-op threads (the setting is
+# per process, and a worker runs many files).
+torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -232,40 +235,6 @@ def test_steps_match_jax(monkeypatch):
     assert ts.state.gmap.capacity == js.state.gmap.capacity == 2 * SYSTEM["map_capacity"]
     np.testing.assert_array_equal(ts.state.gmap.active.numpy(),
                                   np.asarray(js.state.gmap.active))
-
-
-def test_cli_writes_every_artifact(tmp_path, monkeypatch):
-    from monogs_torch.__main__ import main
-    from monogs_torch.utils.ply import load_ply
-
-    monkeypatch.chdir(REPO)
-    cfg = tmp_path / "cpu_smoke_here.yaml"
-    cfg.write_text(f'inherit_from: "{REPO}/configs/synthetic/cpu_smoke.yaml"\n'
-                   f'Results:\n  save_dir: "{tmp_path}"\n')
-    out = main(["--config", str(cfg), "--device", "cpu", "--backend", "slab", "--eval",
-                "--ate-align"])
-    d = out["save_dir"]
-    assert d.startswith(str(tmp_path))
-    with open(os.path.join(d, "plot", "trj_final.json")) as f:
-        trj = json.load(f)
-    assert trj["trj_id"] == list(range(8))
-    with open(os.path.join(d, "plot", "stats_aligned.json")) as f:
-        assert json.load(f)["aligned"] is True
-    with open(os.path.join(d, "psnr", "final", "final_result.json")) as f:
-        ev = json.load(f)
-    assert ev["n_frames"] >= 1 and ev["mean_lpips"] is None
-    with open(os.path.join(d, "metrics.json")) as f:
-        metrics = json.load(f)
-    for k in ("config", "n_frames", "fps", "wall_s", "final_ate_rmse",
-              "tracking_iters_mean", "overflow_max", "n_keyframes", "map_active",
-              "mode", "refine_iters", "psnr", "ssim", "stages"):
-        assert k in metrics, k
-    assert out["slam"].tcfg.backend == out["slam"].mcfg.backend == "slab"
-    assert metrics["n_frames"] == 8 and np.isfinite(metrics["final_ate_rmse"])
-    assert metrics["stages"]["track.readback"]["n"] == 7
-    ply = load_ply(os.path.join(d, "point_cloud", "final", "point_cloud.ply"))
-    assert 0 < ply["xyz"].shape[0] == metrics["map_active"]
-    assert os.path.exists(os.path.join(d, "config.yml"))
 
 
 def test_window_host_unpack_and_const_velocity_match_jax():

@@ -22,6 +22,8 @@ from monogs_torch.ops.graphics import Intrinsics as TIntr
 from monogs_torch.slam import tracker as ttrk
 from monogs_torch.utils.convert import frame_from_numpy, params_from_numpy
 
+torch.set_num_threads(2)   # the test workers share the CPUs (tests/test_torch_system.py)
+
 W, H, N = 64, 48, 150
 KW = dict(fx=60.0, fy=60.0, cx=W / 2, cy=H / 2, width=W, height=H)
 RHO0 = np.array([0.01, -0.005, 0.008], np.float32)
