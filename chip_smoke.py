@@ -83,6 +83,26 @@ Phases, one line each; any failure propagates and exits non-zero:
      100 active Gaussians or fewer, PSNR <= 10 dB (tests/test_slam_e2e.py:
      159-190), and on phase 9's checks of the PLY, the kernels, the
      backends and the twins;
+ 11. the concurrent tracker / mapper mode (SLAM.run_async: the mapper on a
+     thread and a CUDA stream of its own): 11a, phase 9's command line with
+     --async-mode --ckpt-every 3 (no refinement; the checkpoint at keyframe
+     10): fps and wall beside phase 9's, ATE / PSNR / SSIM, tracking ms a
+     frame and mapping ms a keyframe beside phase 9's, the frames tracked
+     while a keyframe event was in flight, the largest staleness, the
+     checkpoint's write ms and bytes, peak device memory beside phase 9's,
+     each kernel's launches per stream (the tracker's, the mapper's) and
+     the host reads per thread; 11b, a fresh
+     SLAM restores that checkpoint cold and continues run_async to frame
+     16; 11c, --resume-run of 11a's directory regenerates its deleted
+     metrics.json; 11d, run_async with every keyframe event in the
+     bootstrap window against run() on configs/synthetic/cpu_smoke.yaml
+     with the slab backend. It fails on ATE >= 0.05 m, PSNR <= 15 dB,
+     phase 9's checks, a slab kernel or the relayout not launched on both
+     streams, a mode other than "async", no checkpoint, a resumed
+     trajectory short of frames 0-15 or its ATE >= 0.05 m, resumed figures
+     off the run's (ATE 1e-9, PSNR 1e-4, SSIM 1e-5, frames and fps equal)
+     or a frame loop in the --resume-run, and bootstrap poses more than
+     1e-5 from run()'s or another active count;
 then the kernels' JSON line (each row's `launches` is the sum of the
 per-path counts beside it; its times, bound and error are at the mapping
 shapes, or the probe's) and, last, {"ok": true, "device": {...}}.
@@ -104,6 +124,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -124,12 +145,13 @@ H100_SFU_OPS = 16 * 132 * 1.98e9   # results/s
 # the rest runs only on the pairs of a (warp, slot) with some nonzero alpha
 # (roofline.active_warp_slots), as the kernels skip the others:
 #   alpha:    dx, dy 2; power 9; clamp + expf 2; alpha_raw, tests, min 4 = 17
-#   forward:  w 1; 4 fma + 1 add 9; 1 - alpha, the T product 2          = 12
+#   forward:  w 1; 4 fma + 1 add 9; 1 - alpha, the T product 2; the
+#             chunk vote's log1pf and log T sum 2                        = 14
 #   backward: w 1; g 8; prefix 2; 1 - alpha 1; A - prefix, divide,
 #             dalpha 4; mask, dpower 3; dp dx 1; moments 6; w g_c 8;
 #             the T product 1; the slot's 10 gradients and reduce-scatter
-#             adds over PX = 4 pixels 6                                  = 41
-ALPHA_OPS, FWD_REST_OPS, BWD_REST_OPS = 17, 12, 41
+#             adds over PX = 4 pixels 6; log1pf and log T sum 2          = 43
+ALPHA_OPS, FWD_REST_OPS, BWD_REST_OPS = 17, 14, 43
 # The log-space count on every live pair (the plain twins' and the TPU
 # kernels' work), printed as bound_log_ms so rows compare with earlier PRs:
 #   forward:  alpha 17; Tk 2; w 1; acc 9; log1pf + running sum 2 = 31
@@ -697,7 +719,8 @@ READ_STAGE = {"track": "tracking", "_mapper_keyframe": "keyframe",
               "_apply_mapper_result": "keyframe", "process_frame": "keyframe",
               "initialize": "init", "_load_frame_impl": "load", "render_at": "eval",
               "eval_rendering": "eval", "save_map": "export", "run": "run",
-              "refine": "refine"}
+              "refine": "refine", "_maybe_checkpoint": "checkpoint",
+              "run_async": "run"}
 
 
 def host_cpu() -> str:
@@ -736,8 +759,8 @@ def drive_cli(argv: list) -> tuple[dict, dict]:
     os.environ["MONOGS_SYNTH_CACHE"] = "0"
     counted = (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels,
                kernels.tile_order, kernels.op_microbench)
-    for k in counted:
-        k.launches = 0
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     # Each twin, the oracle and tile_bin are counted in the module whose
     # code calls them: the slab twins in tile_raster's dispatchers, the
     # oracle and the render's binning in render.py and the refinement's
@@ -755,7 +778,7 @@ def drive_cli(argv: list) -> tuple[dict, dict]:
     in_gt = threading.local()
     gt = {"renders": 0, "slab_fwd": 0}
     bins = {"render": 0, "mapper": 0}
-    reads = {}
+    reads, reads_by_thread = {}, {}
     refine = {"calls": 0, "iters": 0, "s": 0.0, "tile_bin": 0, "geometry": None,
               "launches": {k.__name__: 0 for k in counted}}
 
@@ -815,6 +838,8 @@ def drive_cli(argv: list) -> tuple[dict, dict]:
                 stage = READ_STAGE[fr.name]
                 break
         reads[stage] = reads.get(stage, 0) + 1
+        key = f"{threading.current_thread().name}:{stage}"
+        reads_by_thread[key] = reads_by_thread.get(key, 0) + 1
 
     for mod, n in patched[:4]:
         setattr(mod, n, count_twin(mod, n))
@@ -841,7 +866,10 @@ def drive_cli(argv: list) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     return out, {"phase_s": time.perf_counter() - t0,
                  "launches": {k.__name__: k.launches for k in counted},
-                 "twin_calls": twin_calls, "gt": gt, "reads": reads, "refine": refine}
+                 "launches_by_stream": {k.__name__: dict(k.by_stream) for k in counted},
+                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                 "twin_calls": twin_calls, "gt": gt, "reads": reads,
+                 "reads_by_thread": reads_by_thread, "refine": refine}
 
 
 def check_run(out: dict, c: dict, smi: str, path: str) -> dict:
@@ -920,7 +948,7 @@ def system_phase(smi: str) -> tuple[dict, dict]:
         / figures["n_kf"] * 1e3
     line("system", config=SYSTEM_ARGV[1], frames=out["n_frames"], fps=out["fps"],
          wall_s=out["wall_s"], phase_s=f"{c['phase_s']:.1f}", host_cpu=repr(host_cpu()),
-         host_cpus=os.cpu_count(), card=repr(smi))
+         host_cpus=os.cpu_count(), peak_mem_gib=c["peak_mem_gib"], card=repr(smi))
     line("system", ate_rmse=out["final_ate_rmse"], psnr=ev["mean_psnr"], ssim=ev["mean_ssim"],
          eval_frames=ev["n_frames"], train_view_inflated=ev.get("train_view_inflated", False),
          active=out["map_active"], keyframes=out["n_keyframes"],
@@ -976,7 +1004,9 @@ def system_phase(smi: str) -> tuple[dict, dict]:
             f"refinement made {refine_reads} host reads (at most {REFINE_READS_MAX})")
     require(prof is not None, "the profiler saw no device work in the refinement")
     loop = {k: v - rf["launches"][k] for k, v in c["launches"].items()}
-    return loop, rf["launches"]
+    sync = {"fps": out["fps"], "wall_s": out["wall_s"], "peak_mem_gib": c["peak_mem_gib"],
+            "track_ms": track_ms, "kf_ms": kf_ms}
+    return loop, rf["launches"], sync
 
 
 def mono_phase(smi: str) -> dict:
@@ -1016,6 +1046,165 @@ def mono_phase(smi: str) -> dict:
             f"mono map has {out['map_active']} active Gaussians")
     require(ev["mean_psnr"] > MONO_PSNR_MIN,
             f"mono PSNR {ev['mean_psnr']:.2f} dB is not over {MONO_PSNR_MIN}")
+    return c["launches"]
+
+
+# Phase 11: phase 9's run with the tracker and the mapper concurrent, a
+# checkpoint every 3 keyframes (keyframes 0, 5, 10, 15: one, at frame 10,
+# mid-run, so the cold resume has frames 11-15 to track), then the resumes;
+# and the bootstrap equivalence on the small CPU config (async_bootstrap_kfs
+# 99 holds every keyframe event, so run_async does run()'s operations).
+ASYNC_ARGV = ["--config", "configs/synthetic/room.yaml", "--n-frames", "16", "--async-mode",
+              "--ckpt-every", "3", "--eval", "--device", "cuda", "--backend", "slab"]
+RESUME_RUN_ARGV = ["--async-mode", "--n-frames", "16", "--eval"]
+EQUIV_CONFIG, EQUIV_POSE_TOL = "configs/synthetic/cpu_smoke.yaml", 1e-5
+
+
+def _slam_of(config_path: str, backend: str = "slab", **system):
+    """A SLAM on the card from a config file, as the command line builds it
+    (its save_dir cleared; `system` overrides SystemConfig fields)."""
+    from monogs_torch.data import load_dataset
+    from monogs_torch.slam.system import SLAM
+    from monogs_torch.utils import config as uc
+
+    cfg = uc.load_config(config_path)
+    scfg = dataclasses.replace(uc.build_system_config(cfg), save_dir=None, **system)
+    slam = SLAM(load_dataset(cfg, device="cuda"), config=cfg,
+                tracker_config=uc.build_tracker_config(cfg, backend=backend),
+                mapper_config=uc.build_mapper_config(cfg, backend=backend),
+                keyframe_config=uc.build_keyframe_config(cfg), system_config=scfg,
+                device="cuda")
+    slam.prewarm()
+    return slam
+
+
+def async_phase(smi: str, sync: dict) -> dict:
+    """Phase 11, the concurrent tracker / mapper mode on the card.
+    11a: phase 9's command line with --async-mode --ckpt-every 3 (no
+    refinement): fps and wall beside phase 9's, ATE / PSNR / SSIM, tracking
+    ms a frame, mapping ms a keyframe, frames tracked while an event was in
+    flight, the largest staleness (frames tracked between a keyframe's
+    message and its result's application), the checkpoint's write ms and
+    bytes, peak device memory beside phase 9's, each kernel's launches per
+    stream and the host reads per thread; fails on ATE >= 0.05 m, PSNR <= 15 dB,
+    check_run's checks, a slab kernel or the relayout not launched on both
+    the tracker's and the mapper's stream, and metrics.json's mode not
+    "async". 11b: a fresh SLAM restores 11a's checkpoint cold and continues
+    run_async to frame 16; fails unless the trajectory covers frames 0-15,
+    ATE < 0.05 m and more than 100 Gaussians are active. 11c: 11a's
+    metrics.json and psnr/ deleted, --resume-run must regenerate them (ATE
+    to 1e-9, PSNR 1e-4, SSIM 1e-5, frames and fps equal) with no slab_bwd
+    launch. 11d: on configs/synthetic/cpu_smoke.yaml with the slab backend,
+    run_async with async_bootstrap_kfs 99 against run(): poses within 1e-5,
+    the same active count. -> 11a's launches of each kernel."""
+    import numpy as np
+    import torch
+    from monogs_torch.ops import kernels
+    from monogs_torch.utils.ckpt import load_checkpoint
+
+    # 11a.
+    out, c = drive_cli(ASYNC_ARGV)
+    slam, stages = out["slam"], out["stages"]
+    figures = check_run(out, c, smi, "async")
+    with open(os.path.join(out["save_dir"], "metrics.json")) as f:
+        metrics = json.load(f)
+    with open(os.path.join(out["save_dir"], "psnr", "final", "final_result.json")) as f:
+        ev = json.load(f)
+    ckpt_dir = os.path.join(out["save_dir"], "ckpt")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt_dir, n)) for n in os.listdir(ckpt_dir))
+    track_ms = sum(stages[k]["total_s"] for k in ("track.dispatch", "track.readback")) \
+        / figures["n_tracked"] * 1e3
+    kf_ms = sum(v["total_s"] for k, v in stages.items() if k.startswith("kf.")) \
+        / figures["n_kf"] * 1e3
+    staleness = slam.metrics["async_staleness"]
+    line("async", config=ASYNC_ARGV[1], frames=out["n_frames"], fps=out["fps"],
+         wall_s=out["wall_s"], sync_fps=sync["fps"], sync_wall_s=sync["wall_s"],
+         phase_s=f"{c['phase_s']:.1f}", host_cpu=repr(host_cpu()), host_cpus=os.cpu_count(),
+         card=repr(smi))
+    line("async", ate_rmse=out["final_ate_rmse"], psnr=ev["mean_psnr"], ssim=ev["mean_ssim"],
+         eval_frames=ev["n_frames"], active=out["map_active"], keyframes=out["n_keyframes"],
+         kf_history=sorted(slam.kf_history), mode=metrics["mode"])
+    line("async", tracking_ms_per_frame=track_ms, sync_tracking_ms_per_frame=sync["track_ms"],
+         mapping_ms_per_keyframe=kf_ms, sync_mapping_ms_per_keyframe=sync["kf_ms"],
+         frames_tracked_in_flight=slam.metrics["frames_tracked_in_flight"],
+         staleness=staleness, staleness_max=max(staleness, default=0),
+         tracking_iters_mean=out["tracking_iters_mean"], init_s=stages["init"]["total_s"])
+    line("async", ckpt_saves=stages.get("ckpt.save", {}).get("n", 0),
+         ckpt_write_ms=stages.get("ckpt.save", {}).get("mean_ms"), ckpt_bytes=ckpt_bytes,
+         peak_mem_gib=c["peak_mem_gib"], sync_peak_mem_gib=sync["peak_mem_gib"])
+    # Launches by stream: the tracker's (and the ground truth's) on the
+    # default stream, the mapper's on its own; a backward launches from
+    # autograd's device thread on its forward's stream.
+    streams = {"default": "tracker", kernels.stream_key(slam.mapper_stream): "mapper"}
+    for name, by_stream in c["launches_by_stream"].items():
+        line("launches", path="async", kernel=name,
+             **{streams.get(k, k): v for k, v in by_stream.items()})
+    line("async", host_reads_by_thread=repr(c["reads_by_thread"]))
+    for k, v in sorted(stages.items()):
+        print(f"  stage: {k:18s} n={v['n']:3d} total_s={v['total_s']:.3f} "
+              f"mean_ms={v['mean_ms']:.2f}")
+    require(metrics["mode"] == "async", f"metrics.json says mode {metrics['mode']!r}")
+    require(out["final_ate_rmse"] < SYSTEM_ATE_MAX,
+            f"async ATE {out['final_ate_rmse']:.4f} m is not under {SYSTEM_ATE_MAX}")
+    require(ev["mean_psnr"] > SYSTEM_PSNR_MIN,
+            f"async PSNR {ev['mean_psnr']:.2f} dB is not over {SYSTEM_PSNR_MIN}")
+    for name in ("slab_fwd", "slab_bwd", "rows_to_channels"):
+        by = c["launches_by_stream"][name]
+        require(all(by.get(k, 0) > 0 for k in streams),
+                f"{name} did not launch on both the tracker's and the mapper's stream: {by}")
+    require(stages.get("ckpt.save", {}).get("n") == 1 and ckpt_bytes > 0,
+            "the async run did not checkpoint once")
+
+    # 11b. The cold resume.
+    res = _slam_of(ASYNC_ARGV[1])
+    require(res.state is None, "11b: the fresh SLAM has a state")
+    load_checkpoint(ckpt_dir, res)
+    start = max(res.est_poses) + 1
+    t0 = time.perf_counter()
+    ate = res.run_async(n_frames=16, start_frame=start)
+    resume_s = time.perf_counter() - t0
+    active = int(res.state.gmap.num_active)
+    line("resume", checkpoint_frames=start, resumed_frames=len(res.est_poses) - start, ate_rmse=ate,
+         active=active, frames=sorted(res.est_poses) == list(range(16)), s=f"{resume_s:.1f}")
+    require(sorted(res.est_poses) == list(range(16)),
+            f"11b: the stitched trajectory covers {sorted(res.est_poses)}")
+    require(ate < SYSTEM_ATE_MAX and active > 100,
+            f"11b: resumed ATE {ate:.4f} m, {active} active Gaussians")
+    del res
+
+    # 11c. --resume-run regenerates metrics.json.
+    os.remove(os.path.join(out["save_dir"], "metrics.json"))
+    shutil.rmtree(os.path.join(out["save_dir"], "psnr"))
+    again, c2 = drive_cli(["--resume-run", out["save_dir"], *RESUME_RUN_ARGV])
+    same = {"ate": abs(again["final_ate_rmse"] - metrics["final_ate_rmse"]) <= 1e-9,
+            "psnr": abs(again["psnr"] - metrics["psnr"]) <= 1e-4,
+            "ssim": abs(again["ssim"] - metrics["ssim"]) <= 1e-5,
+            "n_frames": again["n_frames"] == metrics["n_frames"],
+            "fps": again["fps"] == metrics["fps"]}
+    line("resume_run", **same, slab_bwd=c2["launches"]["slab_bwd"],
+         slab_fwd=c2["launches"]["slab_fwd"], phase_s=f"{c2['phase_s']:.1f}")
+    require(all(same.values()), f"11c: --resume-run regenerated other figures: {same}")
+    require(c2["launches"]["slab_bwd"] == 0, "11c: --resume-run ran the frame loop")
+    del again, out, slam
+
+    # 11d. Bootstrap equivalence.
+    ref = _slam_of(EQUIV_CONFIG)
+    ref.run()
+    boot = _slam_of(EQUIV_CONFIG, async_bootstrap_kfs=99)
+    kernels.reset_launches()
+    boot.run_async()
+    err = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+              for i in ref.est_poses for a, b in zip(boot.est_poses[i], ref.est_poses[i]))
+    act = (int(boot.state.gmap.num_active), int(ref.state.gmap.num_active))
+    mapper_bwd = kernels.slab_bwd.by_stream.get(kernels.stream_key(boot.mapper_stream), 0)
+    line("equivalence", config=EQUIV_CONFIG, frames=len(ref.est_poses), pose_max_abs_err=err,
+         active=act, same_keyframes=boot.kf_history == ref.kf_history,
+         mapper_slab_bwd=mapper_bwd)
+    require(sorted(boot.est_poses) == sorted(ref.est_poses) and err <= EQUIV_POSE_TOL
+            and act[0] == act[1] and boot.kf_history == ref.kf_history,
+            f"11d: run_async with the bootstrap window differs from run(): pose error "
+            f"{err}, active {act}")
+    require(mapper_bwd > 0, "11d: the mapper's stream launched no slab_bwd")
     return c["launches"]
 
 
@@ -1277,11 +1466,13 @@ def main() -> int:
 
     # 9. The SLAM system through its command line, with the refinement;
     # 10. the monocular system.
-    sys_launches, refine_launches = system_phase(smi)
+    sys_launches, refine_launches, sync = system_phase(smi)
     mono_launches = mono_phase(smi)
+    # 11. The concurrent mode, its checkpoint and the resumes.
+    async_launches = async_phase(smi, sync)
     for row in report:
         for path, counts in (("system", sys_launches), ("refine", refine_launches),
-                             ("mono", mono_launches)):
+                             ("mono", mono_launches), ("async", async_launches)):
             row[f"launches_{path}"] = counts[row["name"]]
             row["launches"] += counts[row["name"]]
     line("done", total_s=f"{time.perf_counter() - t_start:.1f}")

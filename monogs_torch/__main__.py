@@ -1,18 +1,32 @@
-"""Command line: the synchronous SLAM run of a YAML config (the port of
-slam.py's synchronous path).
+"""Command line: a SLAM run of a YAML config (the port of slam.py).
 
     python -m monogs_torch --config configs/synthetic/room.yaml --eval
     python -m monogs_torch --config configs/synthetic/cpu_smoke.yaml --device cpu --eval
     python -m monogs_torch --config configs/synthetic/room.yaml --refine-curve 0,400
     python -m monogs_torch --config configs/synthetic/room_mono.yaml --ate-align-scale
+    python -m monogs_torch --config configs/synthetic/room.yaml --async-mode --ckpt-every 3
+    python -m monogs_torch --config configs/synthetic/room.yaml --resume RUN_DIR/ckpt
+    python -m monogs_torch --resume-run RUN_DIR --eval
 
-Creates <Results.save_dir>/<dataset type>_<scene>/<timestamp>/ with the
-merged config (config.yml), runs `SLAM.run`, then the colour refinement
-(--refine N iterations; --refine-curve refines on to each cumulative
-milestone and evaluates there, into refine_curve.json), optionally the
-rendering evaluation (PSNR / SSIM over every 5th non-keyframe frame) and
-the aligned ATEs, and writes the final PLY and metrics.json (the JAX CLI's
-keys). `main(argv)` returns the metrics.json dict.
+Creates <Results.save_dir>/<dataset type>_<scene>/<timestamp>/ (with
+--resume-run: RUN_DIR itself) with the merged config (config.yml), runs
+the frame loop, synchronous (`SLAM.run`) or with the tracker and mapper
+concurrent (`SLAM.run_async`: --async-mode, or a config's single_thread:
+False, unless --sync), then the colour refinement (--refine N iterations;
+--refine-curve refines on to each cumulative milestone and evaluates
+there, into refine_curve.json), optionally the rendering evaluation (PSNR /
+SSIM over every 5th non-keyframe frame) and the aligned ATEs, and writes
+the final PLY and metrics.json (the JAX CLI's keys). `main(argv)` returns
+the metrics.json dict.
+
+Checkpoints (utils/ckpt.py): --ckpt-every N writes RUN_DIR/ckpt every N
+keyframes, and --resume CKPT_DIR continues the frame loop after the
+checkpoint's last frame. The phase ledger RUN_DIR/phase.json records the
+frame loop and --refine as each completes, with the whole state in
+RUN_DIR/ckpt_slam_end and RUN_DIR/ckpt_refined (--no-phase-ckpt: neither);
+--resume-run RUN_DIR skips every phase it records complete (a run that
+died in its frame loop continues from RUN_DIR/ckpt) and writes the
+artifacts of the rest, metrics.json among them.
 """
 
 from __future__ import annotations
@@ -22,6 +36,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 import yaml
 
@@ -29,7 +44,8 @@ import yaml
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m monogs_torch",
                                  description="Gaussian Splatting SLAM on PyTorch / CUDA")
-    ap.add_argument("--config", required=True, help="YAML config path")
+    ap.add_argument("--config", default=None,
+                    help="YAML config path (with --resume-run: default the run's config.yml)")
     ap.add_argument("--eval", action="store_true",
                     help="run the rendering evaluation (PSNR / SSIM) at the end")
     ap.add_argument("--n-frames", type=int, default=None,
@@ -49,11 +65,41 @@ def _parser() -> argparse.ArgumentParser:
                     help="also report the ATE after an Umeyama alignment")
     ap.add_argument("--ate-align-scale", action="store_true",
                     help="also report the ATE after a Sim(3) alignment (monocular)")
+    ap.add_argument("--async-mode", action="store_true",
+                    help="run the tracker and the mapper concurrently")
+    ap.add_argument("--sync", action="store_true",
+                    help="run synchronously even where the config sets single_thread: False")
+    ap.add_argument("--ckpt-every", type=int, default=None, metavar="N",
+                    help="checkpoint the whole SLAM state every N keyframes")
+    ap.add_argument("--resume", default=None, metavar="CKPT_DIR",
+                    help="continue the frame loop from a checkpoint directory")
+    ap.add_argument("--resume-run", default=None, metavar="RUN_DIR",
+                    help="resume a run in place: skip the phases RUN_DIR/phase.json "
+                         "records complete and rerun the rest")
+    ap.add_argument("--no-phase-ckpt", action="store_true",
+                    help="write no phase checkpoints (and so no phase.json)")
     return ap
 
 
+def _jsonable(x):
+    """metrics as JSON: tensors and numpy scalars to numbers or lists."""
+    if isinstance(x, dict):
+        return {k: _jsonable(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_jsonable(v) for v in x]
+    if isinstance(x, (str, bool, int, float)) or x is None:
+        return x
+    a = x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    return a.item() if a.size == 1 else a.tolist()
+
+
 def main(argv: list[str] | None = None) -> dict:
-    args = _parser().parse_args(argv)
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.resume_run:
+        args.config = args.config or os.path.join(args.resume_run, "config.yml")
+    if not args.config:
+        ap.error("--config is required (unless --resume-run is given)")
 
     from .data import load_dataset
     from .slam.system import SLAM
@@ -76,10 +122,6 @@ def main(argv: list[str] | None = None) -> dict:
 
     config = load_config(args.config)
     scfg = build_system_config(config)
-    if not scfg.single_thread:
-        raise NotImplementedError("single_thread: False asks for the concurrent "
-                                  "tracker / mapper mode, not ported yet (ROADMAP "
-                                  "Queue 1 item 13)")
     backend = args.backend or scfg.backend
 
     ds_cfg = config.get("Dataset", {})
@@ -87,6 +129,9 @@ def main(argv: list[str] | None = None) -> dict:
     stamp = time.strftime("%Y-%m-%d-%H-%M-%S")
     save_root = config.get("Results", {}).get("save_dir", "results")
     save_dir = os.path.join(save_root, f"{ds_cfg.get('type', 'x')}_{scene}", stamp)
+    if args.resume_run:
+        # In place: the saved config.yml names the original save root.
+        save_dir = args.resume_run
     os.makedirs(save_dir, exist_ok=True)
     config.setdefault("Results", {})["save_dir"] = save_dir
     scfg.save_dir = save_dir
@@ -100,10 +145,58 @@ def main(argv: list[str] | None = None) -> dict:
                 mapper_config=build_mapper_config(config, backend=backend),
                 keyframe_config=build_keyframe_config(config), system_config=scfg,
                 device=device)
+    if args.ckpt_every is not None:
+        slam.scfg.ckpt_every = args.ckpt_every
+    from .utils.ckpt import load_checkpoint, save_checkpoint
+
+    start_frame = 0
+    resume_from = args.resume
+    phase_path = os.path.join(save_dir, "phase.json")
+    if (not resume_from and args.resume_run and not os.path.exists(phase_path)
+            and os.path.isdir(os.path.join(save_dir, "ckpt"))):
+        resume_from = os.path.join(save_dir, "ckpt")    # died in the frame loop
+    if resume_from:
+        load_checkpoint(resume_from, slam)
+        start_frame = max(slam.est_poses) + 1
+        Log(f"Resumed from {resume_from} at frame {start_frame}", tag="System")
     slam.prewarm()
-    rmse = slam.run(n_frames=args.n_frames)
+    use_async = (args.async_mode or not slam.scfg.single_thread) and not args.sync
+
+    phase = {}
+    if args.resume_run and os.path.exists(phase_path):
+        with open(phase_path) as f:
+            phase = json.load(f)
+
+    def phase_done(name: str):
+        """The state to save_dir/<name> and the ledger to phase.json."""
+        if args.no_phase_ckpt:
+            return
+        save_checkpoint(os.path.join(save_dir, name), slam)
+        with open(phase_path + ".tmp", "w") as f:
+            json.dump(_jsonable(phase), f)
+        os.replace(phase_path + ".tmp", phase_path)
+
+    if phase.get("slam_done"):
+        load_checkpoint(os.path.join(save_dir, "ckpt_refined" if phase.get("refine_done_iters")
+                                     else "ckpt_slam_end"), slam)
+        slam.metrics.update(phase["metrics"])
+        rmse = phase["rmse"]
+        Log(f"Resumed run {save_dir} past the frame loop (refinement done: "
+            f"{phase.get('refine_done_iters', 0)})", tag="System")
+    else:
+        run = slam.run_async if use_async else slam.run
+        rmse = run(n_frames=args.n_frames, start_frame=start_frame)
+        phase = {"slam_done": True, "rmse": rmse, "metrics": slam.metrics}
+        phase_done("ckpt_slam_end")
     if args.refine:
-        slam.refine(iters=args.refine)
+        done_iters = int(phase.get("refine_done_iters", 0))
+        if done_iters < args.refine:
+            slam.refine(iters=args.refine - done_iters)
+            phase["refine_done_iters"] = args.refine
+            phase["metrics"] = slam.metrics
+            phase_done("ckpt_refined")
+        else:
+            Log(f"refinement already done ({done_iters} iterations)", tag="System")
     refine_curve = []
     if args.refine_curve:
         done = args.refine
@@ -141,7 +234,7 @@ def main(argv: list[str] | None = None) -> dict:
         "overflow_max": max(slam.metrics["overflow"], default=0),
         "n_keyframes": len(slam.kf_history),
         "map_active": int(slam.state.gmap.num_active),
-        "mode": "sync",
+        "mode": "async" if use_async else "sync",
         "refine_iters": args.refine,
     }
     if eval_res is not None:

@@ -30,23 +30,26 @@
 //     skipped there: its T, sums and gradients would not change.
 //   - Linear transmittance: T <- T (1 - alpha), front to back, in the same
 //     operations in both kernels, so the backward replays the forward's T
-//     bit for bit. That leaves expf(power) (and the backward's IEEE divide
-//     S / (1 - alpha)) as the only transcendental work per pair; the
-//     log-space twins need two expf and a log1pf. The chunk skip keeps the
-//     TPU rule as one block-wide vote per chunk (__syncthreads_or over all
-//     pixels, padding pixels included), on T > T_SKIP = expf(LOG_SKIP)
-//     rounded once. This vote and the twin's log T > LOG_SKIP can decide
-//     apart when a tile's largest T lies within rounding of 1e-4 at a chunk
-//     boundary: one side then walks a chunk the other does not, and the
-//     image differs from the twin's by up to that T times a colour (~1e-4,
-//     over the 1e-5 rgb tolerance). Rare: no run of the checks has met it.
+//     bit for bit. The image's weights use it, so expf(power) (and the
+//     backward's IEEE divide S / (1 - alpha)) is the only transcendental
+//     work a pair needs for the image; the log-space twins need two expf
+//     and a log1pf.
+//   - The chunk skip keeps the TPU rule as one block-wide vote per chunk
+//     (__syncthreads_or over all pixels, padding pixels included) on the
+//     twin's own quantity: log T, the running float32 sum of log1pf(-alpha)
+//     in slot order, > LOG_SKIP. Both kernels carry it beside T (one log1pf
+//     a pair on the warp-slots with some alpha). A vote on the linear T >
+//     expf(LOG_SKIP) decides apart from the twin's wherever a tile's
+//     largest T lies within rounding of 1e-4 at a chunk boundary (log T's
+//     resolution there is ~8 ulps of T): one side then walks a chunk the
+//     other does not, and the image differs by up to that T times a colour
+//     (~5e-5 against the 1e-5 rgb tolerance); the boundary-tile test in
+//     tests/test_torch_kernels.py builds such tiles.
 //   - The touched variant (visibility renders only) computes the image
-//     exactly as the hot variant, and carries the twin's log T (log1pf,
-//     expf(log T + excl)) beside it only for the T > 1e-4 test of
-//     `touched`, with the twin's own log-space chunk vote: its image is
-//     bit-identical to the hot variant's and `touched` to the twin's.
-//     Per slot, touched counts hits with one warp reduction and a
-//     fixed-order sum over warps.
+//     exactly as the hot variant, and adds the twin's expf(log T + excl)
+//     only for the T > 1e-4 test of `touched`: its image is bit-identical
+//     to the hot variant's and `touched` to the twin's. Per slot, touched
+//     counts hits with one warp reduction and a fixed-order sum over warps.
 //   - Backward reduction without atomics, deterministic: a thread adds its
 //     4 pixels' moments in registers in a fixed order, forms the slot's 10
 //     gradients, and a reduce-scatter butterfly (12 shuffles: each xor
@@ -87,7 +90,6 @@ constexpr float ALPHA_EPS = (float)(1.0 / 255.0);
 constexpr float ALPHA_MAX = (float)0.99;
 constexpr float TOUCH_T_MIN = (float)1e-4;
 constexpr float LOG_SKIP = (float)-9.2103;
-constexpr float T_SKIP = 0x1.a37278p-14f;  // expf(LOG_SKIP) = 1.00003992e-4
 
 struct Tile {
   int t;           // global tile id
@@ -193,18 +195,12 @@ slab_fwd_kernel(const float* __restrict__ feats, const int* __restrict__ pstart_
 #pragma unroll
     for (int c = 0; c < 5; ++c) acc[i][c] = 0.0f;
   }
-  bool img_live = true, log_live = TOUCHED;
   int j = 0;
   for (; j < s.nch; ++j) {
-    bool tv = false, lv = false;
+    bool lv = false;
 #pragma unroll
-    for (int i = 0; i < PX; ++i) {
-      tv = tv || T[i] > T_SKIP;
-      lv = lv || logT[i] > LOG_SKIP;
-    }
-    if (img_live) img_live = __syncthreads_or(tv) != 0;
-    if (TOUCHED && log_live) log_live = __syncthreads_or(lv) != 0;
-    if (!img_live && !log_live) break;
+    for (int i = 0; i < PX; ++i) lv = lv || logT[i] > LOG_SKIP;
+    if (!__syncthreads_or(lv)) break;
     load_chunk(sf, s.f, E_cap, s.col + (long long)j * CHUNK);
     __syncthreads();
     float excl[PX];
@@ -222,40 +218,34 @@ slab_fwd_kernel(const float* __restrict__ feats, const int* __restrict__ pstart_
       }
       int hits = 0;
       if (__any_sync(FULL, any)) {
-        if (img_live) {
 #pragma unroll
-          for (int i = 0; i < PX; ++i) {
-            const float w = r[i].alpha * T[i];
-            acc[i][0] = __fmaf_rn(w, q.cr, acc[i][0]);
-            acc[i][1] = __fmaf_rn(w, q.cg, acc[i][1]);
-            acc[i][2] = __fmaf_rn(w, q.cb, acc[i][2]);
-            acc[i][3] = __fmaf_rn(w, q.cd, acc[i][3]);
-            acc[i][4] = acc[i][4] + w;
-            T[i] = T[i] * (1.0f - r[i].alpha);
-          }
-        }
-        if (TOUCHED && log_live) {
-#pragma unroll
-          for (int i = 0; i < PX; ++i) {
+        for (int i = 0; i < PX; ++i) {
+          const float w = r[i].alpha * T[i];
+          acc[i][0] = __fmaf_rn(w, q.cr, acc[i][0]);
+          acc[i][1] = __fmaf_rn(w, q.cg, acc[i][1]);
+          acc[i][2] = __fmaf_rn(w, q.cb, acc[i][2]);
+          acc[i][3] = __fmaf_rn(w, q.cd, acc[i][3]);
+          acc[i][4] = acc[i][4] + w;
+          T[i] = T[i] * (1.0f - r[i].alpha);
+          if (TOUCHED) {
             const float Tk = expf(logT[i] + excl[i]);
             hits += (r[i].ok && Tk > TOUCH_T_MIN && s.valid[i]) ? 1 : 0;
-            excl[i] = excl[i] + log1pf(-r[i].alpha);
           }
+          excl[i] = excl[i] + log1pf(-r[i].alpha);
         }
       }
-      if (TOUCHED && log_live) {
+      if (TOUCHED) {
         const int n = __reduce_add_sync(FULL, hits);
         if (lane == 0) scnt[warp][k] = n;
       }
     }
-    if (TOUCHED) {
 #pragma unroll
-      for (int i = 0; i < PX; ++i) logT[i] = logT[i] + excl[i];
+    for (int i = 0; i < PX; ++i) logT[i] = logT[i] + excl[i];
+    if (TOUCHED) {
       __syncthreads();
       for (int k = threadIdx.x; k < CHUNK; k += blockDim.x) {
         int n = 0;
-        if (log_live)
-          for (int w = 0; w < nwarps; ++w) n += scnt[w][k];
+        for (int w = 0; w < nwarps; ++w) n += scnt[w][k];
         touched[(long long)s.t * K + j * CHUNK + k] = n;
       }
     }
@@ -324,7 +314,7 @@ slab_bwd_kernel(const float* __restrict__ feats, const int* __restrict__ pstart_
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int P = blockDim.x * PX;
   const float* bx = baux + (long long)s.t * 8 * P + s.p0;
-  float g[5][PX], A[PX], T[PX], pref[PX];
+  float g[5][PX], A[PX], T[PX], logT[PX], pref[PX];
 #pragma unroll
   for (int c = 0; c < 5; ++c) {
     const float4 v = *reinterpret_cast<const float4*>(bx + c * P);
@@ -335,18 +325,21 @@ slab_bwd_kernel(const float* __restrict__ feats, const int* __restrict__ pstart_
     A[0] = v.x, A[1] = v.y, A[2] = v.z, A[3] = v.w;
   }
 #pragma unroll
-  for (int i = 0; i < PX; ++i) T[i] = 1.0f, pref[i] = 0.0f;
+  for (int i = 0; i < PX; ++i) T[i] = 1.0f, logT[i] = 0.0f, pref[i] = 0.0f;
   float* df = dfeats + (s.f - feats);
   const int vidx = rs_index(lane);
   const bool writer = rs_writer(lane);
   for (int j = 0; j < s.nch; ++j) {
-    bool tv = false;
+    bool lv = false;
 #pragma unroll
-    for (int i = 0; i < PX; ++i) tv = tv || T[i] > T_SKIP;
-    if (!__syncthreads_or(tv)) break;
+    for (int i = 0; i < PX; ++i) lv = lv || logT[i] > LOG_SKIP;
+    if (!__syncthreads_or(lv)) break;
     const long long col0 = s.col + (long long)j * CHUNK;
     load_chunk(sf, s.f, E_cap, col0);
     __syncthreads();
+    float excl[PX];
+#pragma unroll
+    for (int i = 0; i < PX; ++i) excl[i] = 0.0f;
     for (int sub = 0; sub < CHUNK / SUB; ++sub) {
       float(*pw)[SUB + 1] = part[sub & 1][warp];
       for (int kk = 0; kk < SUB; ++kk) {
@@ -383,6 +376,7 @@ slab_bwd_kernel(const float* __restrict__ feats, const int* __restrict__ pstart_
 #pragma unroll
             for (int c = 0; c < 4; ++c) m_w[c] = __fmaf_rn(w, g[c][i], m_w[c]);
             T[i] = T[i] * om;
+            excl[i] = excl[i] + log1pf(-r[i].alpha);
           }
           const float m_dy = dy * m_dp;
           const float d[NFEAT] = {
@@ -405,6 +399,8 @@ slab_bwd_kernel(const float* __restrict__ feats, const int* __restrict__ pstart_
         df[v * (long long)E_cap + col0 + sub * SUB + kk] = sum;
       }
     }
+#pragma unroll
+    for (int i = 0; i < PX; ++i) logT[i] = logT[i] + excl[i];
   }
 }
 

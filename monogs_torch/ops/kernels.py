@@ -18,7 +18,17 @@ Each launcher takes CUDA tensors only (the dispatchers in tile_raster.py
 and tools/roofline.py send CPU tensors to the plain twins), checks device, dtype, shape and
 contiguity, allocates its outputs with torch, launches on the current
 stream, raises if the launch failed, and counts its launches in the plain
-integer attribute `launches`. It never synchronises.
+integer attribute `launches`, and per CUDA stream (`stream_key`) in the
+dict `by_stream`. It never synchronises.
+
+Threads: the concurrent SLAM mode launches the kernels from two host
+threads at once, each on a stream of its own. The builds and the first
+loads run once under a lock (two threads of one process would otherwise
+write one temporary library), and the counts are updated under a lock
+(`+= 1` is a read-modify-write). The counts are per stream, not per host
+thread: PyTorch runs a CUDA backward on its autograd engine's own thread,
+on the stream of the forward, so the stream is what tells the SLAM's
+threads apart.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 
 import torch
 
@@ -68,11 +79,61 @@ def _lib_path(name: str) -> tuple[str, str]:
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
+_build_lock = threading.Lock()
+_count_lock = threading.Lock()
+_relayout_lock = threading.Lock()
+
+
+def _once(fn):
+    """functools.cache for a function of no arguments, safe across threads:
+    the first call runs fn under a lock, every later call returns its
+    result (`cache_clear` forgets it, as functools.cache's does)."""
+    done = []
+    lock = threading.Lock()
+
+    @functools.wraps(fn)
+    def get():
+        if not done:
+            with lock:
+                if not done:
+                    done.append(fn())
+        return done[0]
+
+    def cache_clear():
+        with lock:
+            done.clear()
+
+    get.cache_clear = cache_clear
+    return get
+
+
+def stream_key(stream) -> str:
+    """The name a CUDA stream's launches are counted under: "default", or
+    "stream <id>"."""
+    if stream.cuda_stream == torch.cuda.default_stream(stream.device).cuda_stream:
+        return "default"
+    return f"stream {stream.stream_id}"
+
+
+def _count(launcher, device) -> None:
+    """One launch of `launcher`'s kernel, counted in total and for the
+    current stream on `device`."""
+    key = stream_key(torch.cuda.current_stream(device))
+    with _count_lock:
+        launcher.launches += 1
+        launcher.by_stream[key] = launcher.by_stream.get(key, 0) + 1
+
+
 def build_all(names=CUDA_SOURCES) -> dict:
     """Compile csrc/<name>.cu for each name not built yet, one nvcc each,
     all started together; returns {name: path of the shared library}. The
     compiler's -Xptxas -v report (registers, shared memory, spills) is kept
-    beside each library as <lib>.log."""
+    beside each library as <lib>.log. One build at a time per process."""
+    with _build_lock:
+        return _build_all(names)
+
+
+def _build_all(names) -> dict:
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
     procs = {}
@@ -103,7 +164,7 @@ def build_log(name: str = "composite") -> str:
         return f.read()
 
 
-@functools.cache
+@_once
 def _composite_lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_all(("composite",))["composite"])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -118,7 +179,7 @@ def _composite_lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
+@_once
 def _microbench_lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_all(("microbench",))["microbench"])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -127,7 +188,7 @@ def _microbench_lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
+@_once
 def _relayout_module():
     # Keep Triton's compile cache inside the checkout.
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(BUILD_ROOT, "triton"))
@@ -185,7 +246,7 @@ def tile_order(counts: torch.Tensor) -> torch.Tensor:
                 torch.cuda.current_stream(counts.device).cuda_stream)
         if rc:
             raise RuntimeError(f"tile_order launch failed: CUDA error {rc}")
-        tile_order.launches += 1
+        _count(tile_order, counts.device)
     return order
 
 
@@ -218,7 +279,7 @@ def slab_fwd(feats_cm, pstart_blk, counts, order, cfg, K: int, emit_touched: boo
             cfg.img_h, K, int(emit_touched), torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"slab_fwd launch failed: CUDA error {rc}")
-    slab_fwd.launches += 1
+    _count(slab_fwd, dev)
     return out, touched
 
 
@@ -243,7 +304,7 @@ def slab_bwd(feats_cm, pstart_blk, counts, order, baux, cfg):
             cfg.img_h, torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"slab_bwd launch failed: CUDA error {rc}")
-    slab_bwd.launches += 1
+    _count(slab_bwd, dev)
     return dfeats
 
 
@@ -277,10 +338,12 @@ def rows_to_channels(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((*x.shape[:-2], C, N), dtype=x.dtype, device=x.device)
     if N and B:
         grid = (-(-N // RELAYOUT_BLOCK), B)
-        with torch.cuda.device(x.device):
+        # Under the lock: Triton compiles a specialisation at its first
+        # launch, and two threads could meet there.
+        with torch.cuda.device(x.device), _relayout_lock:
             _relayout_module().rows_to_channels_kernel[grid](
                 x, out, N, C=C, BLOCK=RELAYOUT_BLOCK, num_warps=4)
-        rows_to_channels.launches += 1
+        _count(rows_to_channels, x.device)
     return out
 
 
@@ -309,12 +372,19 @@ def op_microbench(x: torch.Tensor, op: str, n_rep: int,
                 torch.cuda.current_stream(x.device).cuda_stream)
         if rc:
             raise RuntimeError(f"op_microbench launch failed: CUDA error {rc}")
-        op_microbench.launches += 1
+        _count(op_microbench, x.device)
     return out
 
 
-slab_fwd.launches = 0
-slab_bwd.launches = 0
-tile_order.launches = 0
-rows_to_channels.launches = 0
-op_microbench.launches = 0
+LAUNCHERS = (slab_fwd, slab_bwd, tile_order, rows_to_channels, op_microbench)
+
+
+def reset_launches() -> None:
+    """Every launcher's counts to 0."""
+    with _count_lock:
+        for k in LAUNCHERS:
+            k.launches = 0
+            k.by_stream = {}
+
+
+reset_launches()

@@ -51,7 +51,6 @@ every later one.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -127,11 +126,13 @@ def _alpha(u, v, a, b, c, opa, px, py):
     return dx, dy, expp, alpha_raw, ok, alpha
 
 
-@functools.cache
+@kernels._once
 def warm_cpu_math() -> None:
     """Run torch.exp and torch.log1p once on the CPU on one intra-op
     thread (see the module docstring); later multi-threaded calls then
-    compute right from the first."""
+    compute right from the first. Once per process, under a lock: a second
+    host thread (the concurrent SLAM mode's mapper) waits for it, and never
+    reads the thread count while it is set to 1."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:

@@ -641,13 +641,17 @@ def run_initialize_map(state: MapperState, intr: Intrinsics, cfg: MapperConfig):
 
 
 def run_optimize_map(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
-                     iters: int):
+                     iters: int, defer_overflow_read: bool = True):
     """The per-keyframe mapping loop: `iters` iterations in spans between
     the cadence events (densify at gaussian_update_every / offset, the
     non-visible opacity reset at gaussian_reset). -> (state, visibility).
 
-    Overflow telemetry: every span's (overflow, parts) stays on the device
-    and ONE read at the end logs each span over the limit."""
+    Overflow telemetry, read to log each span over the limit: deferred
+    (the synchronous mode, where the mapper owns the device), every span's
+    (overflow, parts) stays on the device and ONE read at the end logs
+    them; not deferred (the concurrent mode), one read per span, so the
+    mapper's thread never runs more than a span ahead of the device and
+    the tracker's work is not queued behind a whole event."""
     cur = int(state.nr_iters)
     end = cur + iters
     span_ovs = []
@@ -659,7 +663,11 @@ def run_optimize_map(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
         cur = it = stop
         if cfg.converged_eps > 0.0:
             state = state._replace(nr_iters=torch.full_like(state.nr_iters, cur))
-        span_ovs.append(torch.cat([aux.overflow[None], aux.overflow_parts]))
+        parts = torch.cat([aux.overflow[None], aux.overflow_parts])
+        if defer_overflow_read:
+            span_ovs.append(parts)
+        else:
+            _log_overflow(parts.cpu())                 # one read for the span
         if it % cfg.gaussian_update_every == cfg.gaussian_update_offset:
             state, _ = densify_event(state, cfg, init_phase=False)
         elif it % cfg.gaussian_reset == 0:

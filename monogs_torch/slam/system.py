@@ -1,24 +1,28 @@
-"""The SLAM system, synchronous path (port of monogs_tpu/slam/system.py).
+"""The SLAM system (port of monogs_tpu/slam/system.py).
 
-One process drives the tracker and the mapper in turn, the reference's
-deterministic single-thread configuration: each frame is loaded (the next
-one on a host thread meanwhile), tracked against the current map, and,
-when it becomes a keyframe, the mapper extends the map from it, optimises
-the keyframe window and prunes. Everything runs on the SLAM `device`
-(default "cuda"): a CUDA device runs the hand-written kernels; the CPU runs
-their plain twins and is for tests. Nothing moves to the CPU on its own.
+`run` is the reference's deterministic single-thread configuration: each
+frame is loaded (the next one on a host thread meanwhile), tracked against
+the current map, and, when it becomes a keyframe, the mapper extends the
+map from it, optimises the keyframe window and prunes. `run_async` runs
+the tracker and the mapper concurrently, the reference's default
+topology, on two host threads (see its docstring). Everything runs on the
+SLAM `device` (default "cuda"): a CUDA device runs the hand-written
+kernels; the CPU runs their plain twins and is for tests. Nothing moves to
+the CPU on its own.
 
 After the frame loop, `refine` refines the map's colours over the
-keyframes.
+keyframes. With `SystemConfig.ckpt_every` and a save_dir, both loops
+checkpoint the whole state every N keyframes (utils/ckpt.py), and
+`run(start_frame=...)` / `run_async(start_frame=...)` continue a restored
+run.
 
 Host reads, as in the JAX package: one (22,) `host_stats` read per
 tracked frame (the tracker's convergence exit reads one bool per
 iteration besides), one read of `window_host_pack` per keyframe, and in
 `refine` one overflow read every 200 iterations and one at the end.
 
-Not carried over from the JAX package: the concurrent tracker / mapper
-mode, checkpoints and resume, the viewer and the multi-device paths
-(ROADMAP Queue 1), and the background compiles of `prewarm` and the
+Not carried over from the JAX package: the viewer and the multi-device
+paths (ROADMAP Queue 1), and the background compiles of `prewarm` and the
 demand re-probes (eager PyTorch has no compile step: a re-probe adopts a
 larger entry capacity at once, and `prewarm` builds the CUDA kernels).
 """
@@ -27,7 +31,10 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import os
+import queue
 import random
+import threading
 import time
 
 import numpy as np
@@ -37,6 +44,7 @@ from ..models import gaussian_map as gm
 from ..ops.binning import SLAB, auto_entry_capacity, measure_entry_demand
 from ..ops.projection import project_gaussians_ch
 from ..ops.render import render
+from ..utils.ckpt import save_checkpoint, state_tensors
 from ..utils.config import (
     SystemConfig,
     build_keyframe_config,
@@ -152,6 +160,11 @@ class SLAM:
         self.first_time_pruned = False
         self.median_depth = 1.0
         self.state: MapperState | None = None
+        # The mapper's overflow reads: one per keyframe event (sync), one
+        # per span while the tracker shares the device (run_async).
+        self._defer_overflow_read = True
+        # The CUDA stream of the last run_async's mapper (None on the CPU).
+        self.mapper_stream = None
         self.metrics = {"ate": [], "tracking_iters": [], "frame_times": [],
                         "overflow": []}
         self._cap_bumps = 0          # overflow-triggered entry_capacity raises
@@ -161,6 +174,53 @@ class SLAM:
         self._prefetcher = (_FramePrefetcher(self._load_frame_impl)
                             if self.scfg.prefetch else None)
 
+    # -- the state and the CUDA streams ----------------------------------------
+    #
+    # run_async's two threads launch on two CUDA streams, and nothing orders
+    # them but events. Every state written to self.state carries an event
+    # recorded on the writer's current stream after its last write; a
+    # reader on another stream waits for it (`read_state`), and marks the
+    # tensors it reads as used on its stream (`record_stream`), so that the
+    # caching allocator does not hand their memory to the writer's stream
+    # while the reader's kernels still read it. Keyframe frames (tracker to
+    # mapper) and mapper results (mapper to tracker) travel with an event
+    # the same way (`_event`, `_on_this_stream`). On the CPU all of it is
+    # nothing.
+
+    @property
+    def state(self) -> MapperState | None:
+        return self._state[0]
+
+    @state.setter
+    def state(self, st: MapperState | None):
+        self._state = (st, self._event() if st is not None else None)
+
+    def _event(self):
+        """An event recorded on the calling thread's current stream (None
+        on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _on_this_stream(self, ev, tensors):
+        """Order the calling thread's current stream after `ev`, and keep
+        each of `tensors` from reuse until the work that stream has queued
+        when the tensor is freed is done."""
+        if ev is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(ev)
+        for x in tensors:
+            x.record_stream(cur)
+
+    def read_state(self) -> MapperState:
+        """self.state, safe to read on the calling thread's stream."""
+        st, ev = self._state
+        self._on_this_stream(ev, state_tensors(st).values())
+        return st
+
     def _window_capacity(self) -> int:
         # Exactly window_size: add_to_window evicts down to it before the
         # mapper sees the list, and a padding slot costs a render each
@@ -168,13 +228,14 @@ class SLAM:
         return self.kcfg.window_size
 
     def prewarm(self):
-        """Build the CUDA kernels before the frame loop, so that no frame's
-        time includes nvcc; nothing to build on the CPU. (The Triton
-        relayout compiles at its first launch.)"""
+        """Build the CUDA kernels and compile the Triton relayout before
+        the frame loop (and before run_async starts its threads), so that
+        no frame's time includes a compile; nothing to build on the CPU."""
         if self.device.type == "cuda":
             from ..ops import kernels
 
             kernels.build_all()
+            kernels.rows_to_channels(torch.zeros((1, 512, 16), device=self.device))
 
     def _section(self, name: str):
         """A profiling section that waits for the SLAM device at its end, so
@@ -214,6 +275,18 @@ class SLAM:
         for idx in [i for i in self.vis_dict if i not in set(self.kf_list)]:
             del self.vis_dict[idx]
 
+    def _checkpoint_due(self) -> bool:
+        return bool(self.scfg.ckpt_every and self.scfg.save_dir
+                    and len(self.kf_history) % self.scfg.ckpt_every == 0)
+
+    def _maybe_checkpoint(self):
+        """The whole state to <save_dir>/ckpt every ckpt_every keyframes."""
+        if self._checkpoint_due():
+            path = os.path.join(self.scfg.save_dir, "ckpt")
+            with self._section("ckpt.save"):
+                save_checkpoint(path, self)
+            Log(f"checkpoint -> {path}", tag="System")
+
     # -- slab capacity -------------------------------------------------------
 
     def _num_tiles(self, cfg) -> int:
@@ -224,7 +297,7 @@ class SLAM:
     def _entry_demand(self, cfg, frame: Frame) -> tuple[int, int]:
         """(padded slab rows, live entries) the current map needs at the
         frame's pose under cfg's caps; one host read."""
-        st = self.state.gmap
+        st = self.read_state().gmap
         z3 = torch.zeros(3, device=self.device)
         proj = project_gaussians_ch(
             st.params["xyz"], gm.get_scales(st.params, cfg.isotropic),
@@ -358,9 +431,9 @@ class SLAM:
         f32 = torch.float32
         frame = frame._replace(R=torch.as_tensor(init_R, dtype=f32, device=self.device),
                                t=torch.as_tensor(init_t, dtype=f32, device=self.device))
+        gmap = self.read_state().gmap
         with self._section("track.dispatch"):
-            res = track_frame(self.state.gmap.params, self.state.gmap.active, frame,
-                              self.intr, self.tcfg)
+            res = track_frame(gmap.params, gmap.active, frame, self.intr, self.tcfg)
         frame = frame._replace(R=res.R, t=res.t, exposure_a=res.exposure_a,
                                exposure_b=res.exposure_b)
         # One host read for all of the frame's bookkeeping.
@@ -427,7 +500,8 @@ class SLAM:
 
         with self._section("kf.optimize"):
             self.state, vis = run_optimize_map(self.state, self.intr, self.mcfg,
-                                               self.mcfg.iters_per_kf)
+                                               self.mcfg.iters_per_kf,
+                                               defer_overflow_read=self._defer_overflow_read)
         if len(kf_list) == self.kcfg.window_size:
             # The first full window may prune from any keyframe; later ones
             # only Gaussians of the three newest keyframes.
@@ -492,7 +566,17 @@ class SLAM:
 
         frame, res = self.track(idx, frame)
         self.frames[idx] = frame
+        create_kf = self._is_keyframe(idx, frame, res)
+        if create_kf:
+            self._add_keyframe(idx, res)
+            self.handle_keyframe(idx, frame)
+            self._maybe_checkpoint()
+        self._gc_frames()
+        self.metrics["frame_times"].append(time.time() - t0)
+        return {"keyframe": create_kf}
 
+    def _is_keyframe(self, idx: int, frame: Frame, res) -> bool:
+        """The keyframe decision for tracked frame idx."""
         last_kf = self.kf_list[0]
         create_kf = (idx - last_kf) >= self.kcfg.kf_interval
         if create_kf and self.kcfg.check_viewpoints_overlap:
@@ -500,19 +584,18 @@ class SLAM:
             create_kf = kf.should_add_as_keyframe(
                 (pose[:9].reshape(3, 3), pose[9:]), self.est_poses[last_kf], res.visibility,
                 self.vis_dict[last_kf], self.median_depth, self.kcfg)
-        if create_kf:
-            self.kf_history.add(idx)
-            self.vis_dict[idx] = res.visibility
-            with self._section("kf.window_select"):
-                self.kf_list, _ = kf.add_to_window(
-                    idx, res.visibility, self.kf_list, self.vis_dict, self.est_poses,
-                    self.kcfg, self.is_window_full)
-            if len(self.kf_list) == self.kcfg.window_size:
-                self.is_window_full = True
-            self.handle_keyframe(idx, frame)
-        self._gc_frames()
-        self.metrics["frame_times"].append(time.time() - t0)
-        return {"keyframe": create_kf}
+        return create_kf
+
+    def _add_keyframe(self, idx: int, res):
+        """Frame idx into the keyframe history and the window's list."""
+        self.kf_history.add(idx)
+        self.vis_dict[idx] = res.visibility
+        with self._section("kf.window_select"):
+            self.kf_list, _ = kf.add_to_window(
+                idx, res.visibility, self.kf_list, self.vis_dict, self.est_poses,
+                self.kcfg, self.is_window_full)
+        if len(self.kf_list) == self.kcfg.window_size:
+            self.is_window_full = True
 
     # -- refinement ----------------------------------------------------------
 
@@ -649,12 +732,13 @@ class SLAM:
         Log(f"{n_frames} frames in {wall_s:.1f}s = {fps:.2f} fps", tag="System")
         self.wandb.log({"fps": fps})
 
-    def run(self, n_frames: int | None = None) -> float:
-        """SLAM over the first n_frames frames (default: all), then the
-        final ATE and, with a save_dir, the map's PLY. -> final ATE RMSE."""
+    def run(self, n_frames: int | None = None, start_frame: int = 0) -> float:
+        """SLAM over the first n_frames frames (default: all), from
+        start_frame (> 0 continues a restored run), then the final ATE and,
+        with a save_dir, the map's PLY. -> final ATE RMSE."""
         n = len(self.dataset) if n_frames is None else n_frames
         wall0 = time.time()
-        for idx in range(n):
+        for idx in range(start_frame, n):
             self.process_frame(idx)
             if self.scfg.eval_every and idx > 0 and idx % self.scfg.eval_every == 0:
                 rmse = self.eval_ate(label=f"{idx}")
@@ -662,11 +746,170 @@ class SLAM:
                 Log(f"frame {idx}: ATE RMSE {rmse:.4f} (tracking iters last "
                     f"{len(it)}: mean {sum(it) / max(len(it), 1):.0f} max {max(it)})",
                     tag="Eval")
+        return self._finish(n - start_frame, wall0)
+
+    def _finish(self, n_frames: int, wall0: float, mode: str = "") -> float:
+        """The end of a frame loop: fps, the final ATE and the PLY."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self._record_fps(n, time.time() - wall0)
+        self._record_fps(n_frames, time.time() - wall0)
         rmse = self.eval_ate(label="final")
-        Log(f"final ATE RMSE {rmse:.4f}", tag="Eval")
+        Log(f"final ATE RMSE {rmse:.4f}{mode}", tag="Eval")
         if self.scfg.save_dir:
             self.save_map(f"{self.scfg.save_dir}/point_cloud/final/point_cloud.ply")
         return rmse
+
+    def run_async(self, n_frames: int | None = None, queue_depth: int = 2,
+                  mapper_timeout: float = 600.0, start_frame: int = 0) -> float:
+        """The tracker and the mapper concurrently (the reference's
+        two-process topology as two host threads). -> final ATE RMSE.
+
+        Ownership: the calling (tracker) thread owns the host bookkeeping
+        (frames, poses, exposures, visibility, keyframe list, metrics); the
+        mapper thread owns the map state, swapping whole new states into
+        self.state (the map's functions build new tensors and never write
+        the tensors a reader holds), and the mapper-side flags. A keyframe
+        goes to the mapper on a bounded queue (backpressure: at most
+        queue_depth events wait), with its frame and keyframe list by value;
+        its result (the window's optimised poses and exposures, the
+        visibility) comes back on a result queue, and the tracker applies
+        it between frames. The first SystemConfig.async_bootstrap_kfs
+        keyframe events, and every event after which a checkpoint is due,
+        are waited for at once (a checkpoint is then of a state with no
+        event in flight).
+
+        Streams: on a card the mapper thread runs on a CUDA stream of its
+        own for its whole life, the tracker (and the frame prefetcher) on
+        the default stream, as in `run`; see the state section above for
+        the events that order them. The mapper reads the map's overflow
+        once per span (not once per event), so that it never queues a
+        whole event's work ahead of the tracker's.
+
+        No fallback: a mapper exception ends the run with
+        RuntimeError("mapper thread failed") chained from it. Whatever ends
+        the loop, the mapper thread is stopped and joined and the overflow
+        read policy restored."""
+        q: queue.Queue = queue.Queue(maxsize=queue_depth)
+        results: queue.Queue = queue.Queue()
+        errors: list[BaseException] = []
+        stop = object()
+        stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self.mapper_stream = stream
+        pending: dict[int, int] = {}    # keyframe -> frames tracked at its message
+        tracked = in_flight = 0
+        staleness = self.metrics.setdefault("async_staleness", [])
+
+        def mapper_loop():
+            with torch.cuda.stream(stream):
+                while True:
+                    msg = q.get()
+                    if msg is stop:
+                        return
+                    try:
+                        idx, frame, kf_list, ready = msg
+                        self._on_this_stream(ready, frame)
+                        self.read_state()
+                        host_pack, vis = self._mapper_keyframe(
+                            idx, frame, kf_list, fetch_frame=self._fetch_frame_at_pose)
+                        results.put((idx, kf_list, host_pack, vis, self._event()))
+                    except BaseException as e:   # handed to the tracker thread
+                        errors.append(e)
+                        return
+
+        def check():
+            if errors:
+                raise RuntimeError("mapper thread failed") from errors[0]
+            if not mapper.is_alive():
+                raise RuntimeError("mapper thread failed: it is not running")
+
+        def drain(block: bool):
+            """Apply the results that are back; with block, wait for all."""
+            deadline = time.monotonic() + mapper_timeout
+            while pending:
+                try:
+                    idx, kf_list, host_pack, vis, ready = results.get(timeout=0.05) \
+                        if block else results.get_nowait()
+                except queue.Empty:
+                    if not block:
+                        return
+                    check()
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"no mapper result in {mapper_timeout} s")
+                    continue
+                self._on_this_stream(ready, (host_pack, vis))
+                self._apply_mapper_result(kf_list, host_pack, vis)
+                staleness.append(tracked - pending.pop(idx))
+
+        def send(msg):
+            deadline = time.monotonic() + mapper_timeout
+            while True:
+                check()
+                try:
+                    q.put(msg, timeout=0.05)
+                    return
+                except queue.Full:
+                    if time.monotonic() > deadline:
+                        raise
+
+        mapper = threading.Thread(target=mapper_loop, name="mapper", daemon=True)
+        self._defer_overflow_read = False
+        mapper.start()
+        finished = False
+        try:
+            bootstrap_left = self.scfg.async_bootstrap_kfs
+            n = len(self.dataset) if n_frames is None else n_frames
+            wall0 = time.time()
+            for idx in range(start_frame, n):
+                t0 = time.time()
+                check()
+                with self._section("frame.load"):
+                    frame = self._load_frame(idx)
+                if idx == 0:
+                    with self._section("init"):
+                        self.initialize(frame)
+                    self.metrics["frame_times"].append(time.time() - t0)
+                    continue
+                drain(block=False)
+                in_flight += bool(pending)
+                frame, res = self.track(idx, frame)
+                tracked += 1
+                self.frames[idx] = frame
+                if self._is_keyframe(idx, frame, res):
+                    self._add_keyframe(idx, res)
+                    pending[idx] = tracked
+                    send((idx, frame, list(self.kf_list), self._event()))
+                    if bootstrap_left > 0 or self._checkpoint_due():
+                        bootstrap_left = max(bootstrap_left - 1, 0)
+                        drain(block=True)
+                    self._maybe_checkpoint()
+                self._gc_frames()
+                self.metrics["frame_times"].append(time.time() - t0)
+            finished = True
+        finally:
+            if not finished:             # drop the queued events, then stop
+                while True:
+                    try:
+                        q.get_nowait()
+                    except queue.Empty:
+                        break
+            deadline = time.monotonic() + mapper_timeout
+            while mapper.is_alive() and time.monotonic() < deadline:
+                try:
+                    q.put(stop, timeout=0.05)
+                    break
+                except queue.Full:
+                    pass
+            mapper.join(timeout=max(deadline - time.monotonic(), 0.0))
+            self._defer_overflow_read = True
+            if stream is not None:
+                torch.cuda.current_stream(self.device).wait_stream(stream)
+        if mapper.is_alive():
+            raise RuntimeError(f"the mapper thread did not stop in {mapper_timeout} s")
+        if errors:
+            raise RuntimeError("mapper thread failed") from errors[0]
+        drain(block=False)
+        if pending:
+            raise RuntimeError(f"keyframe events {sorted(pending)} returned no result")
+        self.read_state()
+        self.metrics["frames_tracked_in_flight"] = in_flight
+        return self._finish(n - start_frame, wall0, " (async)")

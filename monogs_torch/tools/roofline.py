@@ -52,14 +52,15 @@ BWD_MIX = {"exp": 2, "log1p": 1, "div": 1, "flop": 59}
 # Linear T (csrc/composite.cu). Every live pair pays for its alpha: dx, dy
 # 2; power 9; clamp 1 and expf; alpha_raw, tests, min 4. The rest runs only
 # on the pairs of a (warp, slot) with some nonzero alpha (`active_warp_slots`;
-# the kernels skip the others after one vote). Forward: w 1; 4 fma + 1 add;
+# the kernels skip the others after one vote). Both carry the chunk vote's
+# log T: log1pf(-alpha) and its running sum 1. Forward: w 1; 4 fma + 1 add;
 # 1 - alpha and the T product 2. Backward: w, 1 - alpha, the T product 3;
 # g 4; prefix, S 2; dalpha 1 and the divide; mask, dpower 3; the thread's
 # moments 9; the 10 gradients and the warp's reduce-scatter adds over PX = 4
 # pixels ~5.
 ALPHA_MIX = {"exp": 1, "flop": 16}
-FWD_REST_MIX = {"flop": 8}
-BWD_REST_MIX = {"div": 1, "flop": 27}
+FWD_REST_MIX = {"log1p": 1, "flop": 9}
+BWD_REST_MIX = {"log1p": 1, "div": 1, "flop": 28}
 MIXES = ("log", "linear")
 WARP_PIXELS = 128   # the pixels of one slab-kernel warp: 32 threads of PX = 4
 

@@ -184,8 +184,8 @@ def build_keyframe_config(cfg: dict):
 
 @dataclasses.dataclass
 class SystemConfig:
-    """Top-level run options. The JAX package's multi-device, checkpoint
-    and async fields wait with those paths (ROADMAP Queue 1)."""
+    """Top-level run options. The JAX package's multi-device field waits
+    with that path (ROADMAP Queue 1 item 14)."""
 
     map_capacity: int = 1 << 17
     capacity_headroom: int = 8192   # grow when free slots drop below this
@@ -196,9 +196,15 @@ class SystemConfig:
     # Load frame idx+1 on a host thread while frame idx is processed.
     prefetch: bool = True
     use_wandb: bool = False
-    # True: the synchronous path, the only one ported; False asks for the
-    # tracker and mapper to run concurrently (not ported yet).
+    # True: the synchronous path; False: the tracker and the mapper run
+    # concurrently (SLAM.run_async), as the reference's default topology.
     single_thread: bool = True
+    ckpt_every: int = 0             # checkpoint every N keyframes (0 = off)
+    # Async mode: the first N keyframe events run synchronously (the
+    # tracker waits for each mapper result before tracking on), so tracking
+    # does not run against the stale snapshot of a young map. 0 = off, as
+    # the reference overlaps from frame 0.
+    async_bootstrap_kfs: int = 0
 
 
 def build_system_config(cfg: dict) -> SystemConfig:
@@ -216,4 +222,6 @@ def build_system_config(cfg: dict) -> SystemConfig:
         # (base yaml), as in the JAX package.
         single_thread=g("Dataset", "single_thread",
                         d=g("Training", "single_thread", d=True)),
+        ckpt_every=g("System", "ckpt_every", d=0),
+        async_bootstrap_kfs=g("System", "async_bootstrap_kfs", d=0),
     )

@@ -2,8 +2,9 @@
 monogs_tpu/utils/profiling.py).
 
 `section(name, sync=True)` times a block on the host clock; with sync it
-first waits for the card's queued work (torch.cuda.synchronize), so the
-time covers what the block dispatched. `summary()` feeds
+first waits for the work queued on the calling thread's current CUDA
+stream, so the time covers what the block dispatched (and, with two
+threads on two streams, not the other thread's work). `summary()` feeds
 the run's metrics.json "stages"; `device_trace` records a torch.profiler
 trace of the CPU and, where there is one, the card.
 """
@@ -21,17 +22,18 @@ _sections: dict[str, list[float]] = defaultdict(list)
 
 @contextlib.contextmanager
 def section(name: str, sync: bool = False, device=None):
-    """Wall-clock section timer. sync=True waits for `device` before
-    reading the clock when it is a CUDA device (device None: the current
-    CUDA device, where there is one), so the time covers the work the
-    block dispatched and not only its dispatch."""
+    """Wall-clock section timer. sync=True waits for the calling thread's
+    current stream on `device` before reading the clock when it is a CUDA
+    device (device None: the current CUDA device, where there is one), so
+    the time covers the work the block dispatched and not only its
+    dispatch."""
     t0 = time.perf_counter()
     try:
         yield
     finally:
         if sync and (torch.device(device).type == "cuda" if device is not None
                      else torch.cuda.is_available()):
-            torch.cuda.synchronize(device)
+            torch.cuda.current_stream(device).synchronize()
         _sections[name].append(time.perf_counter() - t0)
 
 

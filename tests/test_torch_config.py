@@ -2,8 +2,8 @@
 configs/: the merged dict after inherit_from equals the JAX package's, and
 each typed config the port builds from it equals the JAX package's field
 for field, with the backend name "pallas" read as "slab". The port leaves
-out only the fields of what it has not ported (the multi-device,
-checkpoint and async system options), named here.
+out only the fields of what it has not ported (the multi-device system
+option), named here.
 """
 
 import dataclasses
@@ -22,7 +22,7 @@ NOT_PORTED = {
     # window_size: JAX's MapperConfig carries it but nothing reads it (the
     # window's size is KeyframeConfig.window_size in both packages).
     "MapperConfig": {"window_size"},
-    "SystemConfig": {"use_gt_pose", "mesh_devices", "ckpt_every", "async_bootstrap_kfs"},
+    "SystemConfig": {"use_gt_pose", "mesh_devices"},
 }
 
 

@@ -406,3 +406,130 @@ def test_refine_span_on_card_matches_cpu(cuda):
             assert float((card[k] - params[k]).abs().median()) > 1e-4, k
         else:
             assert torch.equal(card[k], params[k]) and torch.equal(plain[k], params[k]), k
+
+
+# The chunk vote's boundary (ROADMAP Queue 3 item 3): T_SKIP is the
+# kernels' float32 expf(LOG_SKIP), csrc/composite.cu.
+T_SKIP = float.fromhex("0x1.a37278p-14")
+
+
+def _boundary_slab(dev, tiles_x=32, tiles_y=32):
+    """A slab whose tiles each end their first chunk with a transmittance
+    within float32 rounding of T_SKIP, uniform over the tile's pixels: three
+    slots of zero conic (alpha = opacity on every pixel), opacities 0.995
+    (alpha 0.99), 0.9899 and, tile by tile, a third swept over +-1e-5
+    (relative) around the value that puts (1 - 0.99)(1 - 0.9899)(1 - a) at
+    T_SKIP. The second chunk holds one slot of alpha 0.5 and colour (1,
+    0.5, 0.25): a tile that walks it adds ~5e-5 to its rgb, over the 1e-5
+    tolerance, so a kernel whose chunk vote decides apart from the twin's
+    log-space vote on any tile fails the check. -> (feats_cm, pstart_blk,
+    counts, cfg)."""
+    tile = 16
+    cfg = tr.make_raster_config(tiles_x * tile, tiles_y * tile, tile)
+    Tt = cfg.num_tiles
+    f = torch.zeros((1, 16, Tt * SLAB), dtype=torch.float32)
+    t = torch.arange(Tt)
+    col = t * SLAB
+    cu = (t % tiles_x).float() * tile + tile / 2
+    cv = (t // tiles_x).float() * tile + tile / 2
+    a1 = np.float32(0.9899)
+    rest = float(np.float32(np.float32(1.0) - np.float32(0.99)) * (np.float32(1.0) - a1))
+    a2 = 1.0 - T_SKIP / rest
+    sweep = torch.linspace(a2 * (1 - 1e-5), a2 * (1 + 1e-5), Tt, dtype=torch.float64).float()
+    for k, opa in ((0, torch.full((Tt,), 0.995)), (1, torch.full((Tt,), float(a1))),
+                   (2, sweep), (128, torch.full((Tt,), 0.5))):
+        c = col + k
+        f[0, 0, c], f[0, 1, c], f[0, 5, c] = cu, cv, opa
+        f[0, 6:9, c] = torch.tensor([1.0, 0.5, 0.25])[:, None] if k == 128 else 0.3
+        f[0, 9, c] = 1.0 + k
+    counts = torch.full((Tt,), 256, dtype=torch.int32)
+    return f.to(dev), t.to(torch.int32).to(dev), counts.to(dev), cfg
+
+
+def test_slab_kernels_at_the_chunk_vote_boundary(cuda):
+    """Both slab kernels against their twins on tiles whose largest
+    transmittance lands within rounding of T_SKIP at a chunk boundary (the
+    twin walks the second chunk on some tiles and not on others)."""
+    feats, pstart, counts, cfg = _boundary_slab(cuda)
+    order = kernels.tile_order(counts)
+    out_k, touched_k = kernels.slab_fwd(feats, pstart, counts, order, cfg, 256, True)
+    out_p, touched_p = tr._fwd_slab_plain(feats, pstart, counts, cfg, 256, True)
+    first, _ = tr._fwd_slab_plain(feats, pstart, torch.full_like(counts, 128), cfg, 256, False)
+    walked = (out_p - first)[..., 0].abs().amax(1) > 0
+    assert 0 < int(walked.sum()) < walked.numel()
+    _fwd_close(out_k, out_p)
+    assert torch.equal(touched_k, touched_p)
+    g = torch.randn(out_p.shape, generator=torch.Generator(cuda).manual_seed(10), device=cuda)
+    baux = tr.bwd_aux(out_p, g)
+    _grad_close(kernels.slab_bwd(feats, pstart, counts, order, baux, cfg),
+                tr._bwd_slab_plain(feats, pstart, counts, baux, cfg), dims=(0, 2))
+
+
+def _smoke_slam(monkeypatch, **system):
+    """A SLAM on the card from configs/synthetic/cpu_smoke.yaml with the
+    slab backend (the kernels), the frame cache off."""
+    import dataclasses
+    import os
+
+    from monogs_torch.data import load_dataset
+    from monogs_torch.slam.system import SLAM
+    from monogs_torch.utils import config as uc
+
+    monkeypatch.chdir(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    monkeypatch.setenv("MONOGS_SYNTH_CACHE", "0")
+    cfg = uc.load_config("configs/synthetic/cpu_smoke.yaml")
+    slam = SLAM(load_dataset(cfg, device="cuda"),
+                tracker_config=uc.build_tracker_config(cfg, backend="slab"),
+                mapper_config=uc.build_mapper_config(cfg, backend="slab"),
+                keyframe_config=uc.build_keyframe_config(cfg),
+                system_config=dataclasses.replace(uc.build_system_config(cfg), **system),
+                device="cuda")
+    slam.prewarm()
+    return slam
+
+
+def test_run_async_with_bootstrap_equals_run_on_card(cuda, monkeypatch):
+    """With every keyframe event in the bootstrap window, run_async does
+    run()'s operations, the mapper's on a stream of its own: the poses
+    within 1e-5 of run()'s and the active count equal; and two such runs
+    give the same bits (an unordered cross-stream read would show as
+    run-to-run drift). In full async mode the interleaving, and so the
+    trajectory, depends on timing."""
+    ref = _smoke_slam(monkeypatch)
+    ref.run()
+    runs = []
+    for _ in range(2):
+        slam = _smoke_slam(monkeypatch, async_bootstrap_kfs=99)
+        kernels.reset_launches()
+        slam.run_async()
+        for key in ("default", kernels.stream_key(slam.mapper_stream)):
+            assert kernels.slab_bwd.by_stream.get(key, 0) > 0, key
+        runs.append(slam)
+    for slam in runs:
+        assert slam.kf_history == ref.kf_history
+        assert int(slam.state.gmap.num_active) == int(ref.state.gmap.num_active)
+        for i in ref.est_poses:
+            for a, b in zip(slam.est_poses[i], ref.est_poses[i]):
+                np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    a, b = runs
+    for i in a.est_poses:
+        assert all(np.array_equal(x, y) for x, y in zip(a.est_poses[i], b.est_poses[i]))
+    for k in a.state.gmap.params:
+        assert torch.equal(a.state.gmap.params[k], b.state.gmap.params[k]), k
+
+
+def test_run_async_on_card_tracks(cuda, monkeypatch):
+    """Full async mode on the card: the tracker's (default) and the
+    mapper's stream both launch the slab kernels and the relayout, and the
+    run meets tests/test_async.py's bounds."""
+    slam = _smoke_slam(monkeypatch)
+    kernels.reset_launches()
+    rmse = slam.run_async()
+    mapper = kernels.stream_key(slam.mapper_stream)
+    assert mapper != "default"
+    for k in (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels):
+        assert k.by_stream.get(mapper, 0) > 0 and k.by_stream.get("default", 0) > 0
+    motions = sum(np.linalg.norm(slam.gt_poses[i][1] - slam.gt_poses[i - 1][1])
+                  for i in range(1, len(slam.gt_poses)))
+    assert np.isfinite(rmse) and rmse < 2.0 * motions
+    assert int(slam.state.gmap.num_active) > 50

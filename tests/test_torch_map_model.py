@@ -200,3 +200,47 @@ def test_grow_and_alloc_slots_match_jax():
     np.testing.assert_array_equal(_np(td), _np(jd))
     np.testing.assert_array_equal(_np(tok), _np(jok))
     assert int(tdrop) == int(jdrop) > 0
+
+
+@pytest.mark.parametrize("init", [True, False])
+def test_extend_event_seeds_obj_prob_matches_jax(init):
+    """The mapper's extend event on a keyframe with a segmentation (object
+    ids 0-2 on a two-object map, so id 2 clamps to 1), from one state in
+    both packages with JAX's draws fed to the port: the seeded Gaussians'
+    obj_prob one-hots, the active mask and the creating keyframe agree
+    exactly (init: seeding only; after init: the render's densification
+    mask first)."""
+    from monogs_tpu.slam import camera as jcam
+    from monogs_tpu.slam import mapper as jm
+    from monogs_torch.slam import mapper as tm
+    from monogs_torch.utils.convert import mapper_state_from_numpy
+
+    rgb, depth, seg, _, _ = _keyframe(seed=3)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [0.05, -0.02, 0.1]
+    frame = jcam.make_frame(1, jnp.asarray(rgb), jnp.asarray(depth), jnp.asarray(pose),
+                            segmentation=jnp.asarray(seg))
+    js = jm.init_mapper_state(CAP, 2, jcam.window_from_list([frame], 2))
+    if not init:
+        jmap, jadam = _jmap(n_active=40)
+        js = js._replace(gmap=jmap._replace(obj_prob=jnp.zeros((CAP, 2), jnp.float32)),
+                         adam=jadam)
+    ts = mapper_state_from_numpy(js, "cpu")
+    kw = dict(tile_size=16, tile_capacity=256, pcd_downsample_init=8, pcd_downsample=4,
+              max_new_per_kf=96)
+    _, sub = jax.random.split(js.rng)
+    k_scores, k_depth = jax.random.split(sub)
+    jout, (na_j, _) = jm.extend_event(js, frame, 1, JIntr(**INTR),
+                                      jm.MapperConfig(backend="ref", **kw), init)
+    tframe = tm.Frame(*(x[0] for x in ts.window.frames))
+    tout, (na_t, _) = tm.extend_event(
+        ts, tframe, 1, TIntr(**INTR), tm.MapperConfig(backend="ref", **kw), init,
+        scores_u=_t(jax.random.uniform(k_scores, (H * W,))),
+        depth_noise=_t(jax.random.normal(k_depth, (H, W))))
+    assert int(na_t) == int(na_j) > 0
+    for f in ("active", "kf_idx", "obj_prob"):
+        np.testing.assert_array_equal(_np(getattr(tout.gmap, f)),
+                                      np.asarray(getattr(jout.gmap, f)), err_msg=f)
+    new = np.asarray(jout.gmap.active) & ~np.asarray(js.gmap.active)
+    onehot = np.asarray(jout.gmap.obj_prob)[new]
+    assert (onehot.sum(1) == 1).all() and onehot[:, 1].any() and onehot[:, 0].any()

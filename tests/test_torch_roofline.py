@@ -105,13 +105,14 @@ def test_probe_launcher_takes_cuda_tensors_only():
 
 def test_floors_take_the_linear_mix():
     """mix="linear" is the CUDA kernels' work: alpha (one expf) on every
-    live pair, the rest (the backward's divide) only on the active
-    warp-slots' pairs; the default stays the twins' log-space mix."""
+    live pair, the rest (the chunk vote's log1pf, the backward's divide)
+    only on the active warp-slots' pairs; the default stays the twins'
+    log-space mix."""
     rates = {"fma": 2.0, "exp": 10.0, "log1p": 20.0, "div": 30.0}
     f = roofline.floors_ms(1_000_000, rates, mix="linear", active_pairs=250_000)
     alpha = 1e6 * (10 + 16 * 1.0) / 1e6
-    fwd = alpha + 250_000 * (8 * 1.0) / 1e6
-    bwd = alpha + 250_000 * (30 + 27 * 1.0) / 1e6
+    fwd = alpha + 250_000 * (20 + 9 * 1.0) / 1e6
+    bwd = alpha + 250_000 * (20 + 30 + 28 * 1.0) / 1e6
     assert f["floor_fwd_ms"] == pytest.approx(fwd)
     assert f["floor_bwd_ms"] == pytest.approx(bwd)
     assert f["floor_fwdbwd_ms"] == pytest.approx(fwd + bwd)
