@@ -103,6 +103,26 @@ Phases, one line each; any failure propagates and exits non-zero:
      off the run's (ATE 1e-9, PSNR 1e-4, SSIM 1e-5, frames and fps equal)
      or a frame loop in the --resume-run, and bootstrap poses more than
      1e-5 from run()'s or another active count;
+ 12. the TUM RGB-D on-disk layout: 12a, 16 frames of
+     configs/synthetic/room_final.yaml's room (GT through slab_fwd) written
+     in TUM's layout by monogs_torch.tools.make_tum_fixture's
+     write_tum_fixture and the port's PNG writer (bytes, encode ms a frame,
+     rows of each filter type); 12b, the TUM parser on it (the association
+     keeps all 16 rgb frames; each frame the thinning keeps equals the
+     quantised synthetic frame bit for bit, each pose within 1e-5; decode
+     ms a frame); 12c, main() on a config inheriting
+     configs/rgbd/tum/room_fixture.yaml with its dataset_path set to 12a's
+     directory, --eval: fps, wall, ATE, PSNR, SSIM, active, tracking ms a
+     frame beside phase 9's, the frame.load stage's ms a frame; 12d, cv2,
+     PIL and libnvjpeg on the machine, and without cv2 the Replica, DAVIS,
+     Kubric and EuRoC parsers and configs/synthetic/room_stereo.yaml's rig
+     raise ImportError naming OpenCV when built (with cv2 each builds and
+     reads its first frame; the rig's SGBM depth is held to the JAX
+     suite's bounds against its rendered depth). It fails on a frame or
+     pose off its synthetic source, ATE >= 0.05 m, PSNR <= 15 dB, phase 9's
+     checks of the PLY, kernels, backends and twins, a synthetic GT render
+     in 12c, a parser that builds without OpenCV or raises without naming
+     it, and a first frame that is wrong where OpenCV exists;
 then the kernels' JSON line (each row's `launches` is the sum of the
 per-path counts beside it; its times, bound and error are at the mapping
 shapes, or the probe's) and, last, {"ok": true, "device": {...}}.
@@ -872,11 +892,12 @@ def drive_cli(argv: list) -> tuple[dict, dict]:
                  "reads_by_thread": reads_by_thread, "refine": refine}
 
 
-def check_run(out: dict, c: dict, smi: str, path: str) -> dict:
+def check_run(out: dict, c: dict, smi: str, path: str, synthetic: bool = True) -> dict:
     """The checks every command-line phase shares, with their lines: poses
     finite, the PLY equal to the map, the slab kernels launched, the ground
-    truth rendered through slab_fwd, both backends "slab", no plain twin or
-    dense oracle called and nothing off the card. -> a few figures."""
+    truth rendered through slab_fwd (synthetic=False: no ground-truth render
+    at all, the frames come from files), both backends "slab", no plain twin
+    or dense oracle called and nothing off the card. -> a few figures."""
     import numpy as np
     from monogs_torch.utils.ply import load_ply
 
@@ -895,8 +916,9 @@ def check_run(out: dict, c: dict, smi: str, path: str) -> dict:
     line(path, host_reads=repr(reads),
          reads_per_tracked_frame=reads.get("tracking", 0) / n_tracked,
          reads_per_keyframe=reads.get("keyframe", 0) / max(n_kf, 1),
-         note="read counts taken under torch.cuda.set_sync_debug_mode; "
-              "the frame-load reads are the GT renders' image reads")
+         note="read counts taken under torch.cuda.set_sync_debug_mode; the frame-load "
+              "reads are " + ("the GT renders' image reads" if synthetic
+                              else "the frames' host-to-device copies"))
     line("launches", path=path, gt_renders=gt["renders"], gt_slab_fwd=gt["slab_fwd"],
          twin_calls=sum(c["twin_calls"].values()), **launches)
     line(path, ply_vertices=ply["xyz"].shape[0], num_active=out["map_active"],
@@ -906,8 +928,11 @@ def check_run(out: dict, c: dict, smi: str, path: str) -> dict:
     require(launches["slab_fwd"] > 0 and launches["slab_bwd"] > 0
             and launches["rows_to_channels"] > 0 and launches["tile_order"] > 0,
             f"{path}: a kernel of the system path did not launch")
-    require(gt["renders"] >= out["n_frames"] and gt["slab_fwd"] >= gt["renders"],
-            f"{path}: the ground truth did not render through slab_fwd")
+    if synthetic:
+        require(gt["renders"] >= out["n_frames"] and gt["slab_fwd"] >= gt["renders"],
+                f"{path}: the ground truth did not render through slab_fwd")
+    else:
+        require(gt["renders"] == 0, f"{path}: a synthetic ground truth rendered")
     require(slam.tcfg.backend == slam.mcfg.backend == "slab",
             f"{path}: the system ran backends {slam.tcfg.backend!r} / "
             f"{slam.mcfg.backend!r}, not 'slab'")
@@ -1208,6 +1233,245 @@ def async_phase(smi: str, sync: dict) -> dict:
     return c["launches"]
 
 
+# Phase 12: the TUM RGB-D on-disk layout on the card. 16 frames of
+# room_final.yaml's room (the GT rendered through slab_fwd) are written in
+# TUM's layout by the port's fixture tool and PNG writer, read back by the
+# TUM parser (stamped tables, association, 32 Hz thinning, c2w quaternion
+# poses, 16-bit depth / 5000, the port's PNG decoder), and run through the
+# command line on configs/rgbd/tum/room_fixture.yaml (inherited, its
+# dataset_path set to the fixture: the command line has no such flag).
+# Then the parsers that need OpenCV must say so on a machine without it.
+TUM_SOURCE, TUM_CONFIG, TUM_FRAMES = ("configs/synthetic/room_final.yaml",
+                                      "configs/rgbd/tum/room_fixture.yaml", 16)
+TUM_DIR = os.path.join("build", "tum_fixture_smoke")
+TUM_POSE_TOL = 1e-5
+
+
+def _tiny_opencv_fixtures(root: str, cv2=None) -> dict:
+    """One-frame Replica, DAVIS, Kubric and EuRoC layouts under root, and
+    room_stereo.yaml's rig. PNGs go through write_png; the .jpg and .tiff
+    files through `cv2` where it is given, else they are empty files (only
+    their paths are read before OpenCV would decode them). -> {name:
+    config}."""
+    import numpy as np
+    from monogs_torch.utils.config import load_config
+    from monogs_torch.utils.images import write_png
+
+    h, w = 48, 64
+    calib = {"fx": 50.0, "fy": 50.0, "cx": 32.0, "cy": 24.0, "width": w, "height": h,
+             "depth_scale": 1000.0}
+
+    def put(rel, img):
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if isinstance(img, str):
+            with open(path, "w") as f:
+                f.write(img)
+        elif path.endswith(".png"):
+            write_png(path, img)
+        elif cv2 is not None:
+            require(cv2.imwrite(path, img), f"12d: OpenCV did not write {path}")
+        else:
+            open(path, "wb").close()
+
+    depth = np.full((h, w), 2000, np.uint16)
+    gray = (np.arange(h * w, dtype=np.uint32).reshape(h, w) % 251).astype(np.uint8)
+    color = np.dstack([gray, 255 - gray, gray // 2])
+    put("replica/results/frame000000.jpg", color)
+    put("replica/results/depth000000.png", depth)
+    put("replica/traj.txt", (" ".join(str(v) for v in np.eye(4).ravel()) + "\n") * 2)
+    put("davis/rgb/00000.jpg", color)
+    put("davis/segmentation/00000.png", np.zeros((h, w), np.uint8))
+    put("kubric/rgba/rgba_00000.png", np.dstack([gray] * 4))
+    put("kubric/depth/depth_00000.tiff", np.full((h, w), 2.0, np.float32))
+    put("kubric/segmentation/segmentation_00000.png", np.zeros((h, w), np.uint8))
+    put("kubric/metadata.json", json.dumps({"camera": {"positions": [[0.0, 0.0, 0.0]],
+                                                       "quaternions": [[1.0, 0, 0, 0]]}}))
+    # EuRoC's SGBM (64 disparities, block 20) needs a wider image: a
+    # random texture, the right view 8 px to the left.
+    eh, ew = 96, 192
+    tex = np.random.RandomState(7).randint(0, 256, (eh, ew + 8)).astype(np.uint8)
+    put("euroc/mav0/cam0/data/1000000.png", tex[:, :-8])
+    put("euroc/mav0/cam1/data/1000000.png", tex[:, 8:])
+    put("euroc/mav0/state_groundtruth_estimate0/data.csv",
+        "#timestamp,p,q\n1000000,0,0,0,1,0,0,0\n")
+    cam = {"fx": 80.0, "fy": 80.0, "cx": ew / 2, "cy": eh / 2}
+    raw = dict(cam, k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0)
+    eye = {"data": [1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0]}
+
+    def ds(typ, c=calib):
+        return {"Dataset": {"type": typ, "dataset_path": os.path.join(root, typ),
+                            "Calibration": c}}
+    return {
+        "replica": ds("replica"), "davis": ds("davis"), "kubric": ds("kubric"),
+        "euroc": ds("euroc", {"width": ew, "height": eh, "depth_scale": 1.0,
+                              "cam0": {"raw": raw, "opt": dict(cam), "R": eye},
+                              "cam1": {"raw": raw, "opt": dict(cam), "R": eye}}),
+        "stereo_rig": load_config("configs/synthetic/room_stereo.yaml"),
+    }
+
+
+def tum_phase(smi: str, sync: dict) -> dict:
+    """Phase 12, the TUM layout on the card.
+    12a: write_tum_fixture on 16 frames of room_final.yaml's room (GT through
+    slab_fwd, encodes through write_png): bytes, encode ms a frame, the rows
+    of each PNG filter type. 12b: the TUM parser on it: the association
+    keeps all 16 rgb frames, each frame the 32 Hz thinning keeps decodes to
+    the synthetic frame quantised as the writer quantised it (uint8 rgb /
+    255, uint16 depth / 5000, float32) bit for bit, each w2c pose within
+    1e-5 of the synthetic one; decode ms a frame. 12c: main() on a config
+    inheriting room_fixture.yaml with its dataset_path set to 12a's
+    directory, --eval: check_run's checks (no GT render: the frames are
+    files), ATE < 0.05 m, PSNR > 15 dB; fps, wall, ATE, PSNR, SSIM, active,
+    tracking ms a frame beside phase 9's and the frame.load stage's ms a
+    frame. 12d: what the machine offers (cv2, PIL, libnvjpeg); without cv2
+    building the Replica, DAVIS, Kubric and EuRoC parsers and
+    room_stereo.yaml's rig must raise ImportError naming OpenCV; with cv2
+    each must build and read its first frame (the rig's two renders through
+    slab_fwd, its SGBM depth valid on over a quarter of the pixels and
+    within 8% median of the rendered depth). -> 12c's launches of each
+    kernel."""
+    import glob
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from monogs_torch.data import load_dataset
+    from monogs_torch.data.tum import TUMDataset, match_streams, read_stamped_table
+    from monogs_torch.ops import kernels
+    from monogs_torch.tools.make_tum_fixture import quantise, write_tum_fixture
+    from monogs_torch.utils.config import load_config
+
+    # 12a. The fixture.
+    os.environ["MONOGS_SYNTH_CACHE"] = "0"
+    shutil.rmtree(TUM_DIR, ignore_errors=True)
+    src = load_dataset(load_config(TUM_SOURCE), device="cuda")
+    kernels.reset_launches()
+    stats = write_tum_fixture(src, TUM_DIR, TUM_FRAMES)
+    gt_fwd = kernels.slab_fwd.launches
+    n = stats["frames"]
+    line("tum", step="12a", source=TUM_SOURCE, frames=n, bytes=stats["bytes"],
+         encode_ms_per_frame=stats["encode_s"] * 1e3 / n,
+         render_ms_per_frame=stats["render_s"] * 1e3 / n, gt_slab_fwd=gt_fwd,
+         **{f"rows_{k}": v for k, v in stats["filters"].items()}, card=repr(smi))
+    require(n == TUM_FRAMES and gt_fwd >= TUM_FRAMES,
+            f"12a: {n} frames written, {gt_fwd} slab_fwd launches for their GT")
+
+    # 12b. The parser.
+    cfg = load_config(TUM_CONFIG)
+    cfg["Dataset"]["dataset_path"] = TUM_DIR
+    tabs = [read_stamped_table(os.path.join(TUM_DIR, f)) for f in ("rgb.txt", "depth.txt")]
+    tabs.append(read_stamped_table(os.path.join(TUM_DIR, "groundtruth.txt"), skiprows=1))
+    associated = len(match_streams(*(t[:, 0].astype(np.float64) for t in tabs))[0])
+    tum = TUMDataset(cfg)
+    names = [os.path.join(TUM_DIR, p) for p in tabs[0][:, 1]]
+    decode_s, exact, pose_err = 0.0, True, 0.0
+    for k in range(len(tum)):
+        i = names.index(tum.color_paths[k])
+        tic = time.perf_counter()
+        f = tum[k]
+        decode_s += time.perf_counter() - tic
+        g = src[i]
+        rgb8, dep16 = quantise(g)
+        exact &= bool(np.array_equal(f["rgb"], (rgb8 / 255.0).astype(np.float32))
+                      and np.array_equal(f["depth"], dep16.astype(np.float32) / 5000.0))
+        pose_err = max(pose_err, float(np.abs(f["pose"] - g["pose"]).max()))
+    decode_ms = decode_s * 1e3 / len(tum)
+    line("tum", step="12b", associated=associated, thinned=len(tum),
+         frames_bit_exact=exact, pose_max_abs_err=pose_err,
+         decode_ms_per_frame=decode_ms, note="decode = rgb + depth PNG and the float32 "
+         "conversion, on the host")
+    require(associated == TUM_FRAMES, f"12b: the association kept {associated} of "
+            f"{TUM_FRAMES} rgb frames")
+    require(exact, "12b: a decoded TUM frame differs from the quantised synthetic frame")
+    require(pose_err <= TUM_POSE_TOL, f"12b: a TUM pose is {pose_err} from the synthetic one")
+    del src, tum
+
+    # 12c. The system through the command line.
+    run_cfg = os.path.join("build", "tum_fixture_smoke.yaml")
+    with open(run_cfg, "w") as fh:
+        json.dump({"inherit_from": TUM_CONFIG, "Dataset": {"dataset_path": TUM_DIR}}, fh)
+    out, c = drive_cli(["--config", run_cfg, "--eval", "--device", "cuda", "--backend", "slab"])
+    slam, stages = out["slam"], out["stages"]
+    figures = check_run(out, c, smi, "tum", synthetic=False)
+    with open(os.path.join(out["save_dir"], "psnr", "final", "final_result.json")) as fh:
+        ev = json.load(fh)
+    track_ms = sum(stages[k]["total_s"] for k in ("track.dispatch", "track.readback")) \
+        / figures["n_tracked"] * 1e3
+    load_ms = stages["frame.load"]["total_s"] * 1e3 / stages["frame.load"]["n"]
+    line("tum", step="12c", config=TUM_CONFIG, dataset=type(slam.dataset).__name__,
+         frames=out["n_frames"], fps=out["fps"], wall_s=out["wall_s"],
+         phase_s=f"{c['phase_s']:.1f}", host_cpu=repr(host_cpu()), card=repr(smi))
+    line("tum", ate_rmse=out["final_ate_rmse"], psnr=ev["mean_psnr"], ssim=ev["mean_ssim"],
+         eval_frames=ev["n_frames"], active=out["map_active"], keyframes=out["n_keyframes"],
+         kf_history=sorted(slam.kf_history))
+    line("tum", tracking_ms_per_frame=track_ms, sync_tracking_ms_per_frame=sync["track_ms"],
+         frame_load_ms_per_frame=load_ms, decode_ms_per_frame=decode_ms,
+         tracking_iters_mean=out["tracking_iters_mean"], init_s=stages["init"]["total_s"])
+    for k, v in sorted(stages.items()):
+        print(f"  stage: {k:18s} n={v['n']:3d} total_s={v['total_s']:.3f} "
+              f"mean_ms={v['mean_ms']:.2f}")
+    require(type(slam.dataset).__name__ == "TUMDataset", "12c did not read the TUM layout")
+    require(out["final_ate_rmse"] < SYSTEM_ATE_MAX,
+            f"TUM ATE {out['final_ate_rmse']:.4f} m is not under {SYSTEM_ATE_MAX}")
+    require(ev["mean_psnr"] > SYSTEM_PSNR_MIN,
+            f"TUM PSNR {ev['mean_psnr']:.2f} dB is not over {SYSTEM_PSNR_MIN}")
+    launches = dict(c["launches"])
+    del out, slam
+
+    # 12d. Honest errors where OpenCV is missing.
+    have = {m: importlib.util.find_spec(m) is not None for m in ("cv2", "PIL")}
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    nvjpeg = sorted({os.path.basename(p) for p in glob.glob(os.path.join(
+        cuda_home, "**", "libnvjpeg*"), recursive=True)})
+    torch_nvjpeg = sorted({os.path.basename(p) for p in glob.glob(os.path.join(
+        os.path.dirname(torch.__file__), "..", "nvidia", "**", "libnvjpeg*"), recursive=True)})
+    line("tum", step="12d", cv2=have["cv2"], PIL=have["PIL"], cuda_home=cuda_home,
+         toolkit_libnvjpeg="+".join(nvjpeg) or "none",
+         python_libnvjpeg="+".join(torch_nvjpeg) or "none")
+    cv2 = importlib.import_module("cv2") if have["cv2"] else None
+    if cv2 is not None:
+        line("tum", step="12d", cv2_version=cv2.__version__)
+    fixtures = _tiny_opencv_fixtures(os.path.join("build", "tum_smoke_cv2"), cv2)
+    for name, dcfg in fixtures.items():
+        try:
+            ds, err = load_dataset(dcfg, device="cuda"), None
+        except ImportError as e:
+            ds, err = None, str(e)
+        if cv2 is None:
+            line("tum", step="12d", dataset=name, built=err is None, error=repr(err))
+            require(err is not None and "OpenCV" in err,
+                    f"12d: {name} built, or raised without naming OpenCV, on a machine "
+                    "without cv2")
+            continue
+        # OpenCV is here: the parser must build and read its first frame.
+        require(err is None, f"12d: {name} did not build with OpenCV present: {err}")
+        fwd0 = kernels.slab_fwd.launches
+        tic = time.perf_counter()
+        f = ds[0]
+        read_ms = (time.perf_counter() - tic) * 1e3
+        depth = f["depth"]
+        ok = (f["rgb"].shape == (ds.height, ds.width, 3) and bool(np.isfinite(f["rgb"]).all())
+              and (depth is None or (depth.shape == (ds.height, ds.width)
+                                     and bool(np.isfinite(depth).all()))))
+        extra = {}
+        if name == "stereo_rig":
+            # The JAX suite's bounds on the rig (tests/test_datasets.py:423-434):
+            # SGBM matches over a quarter of the pixels, its depth within 8%
+            # (median) of the rendered depth where both are valid.
+            gt = ds._render_pose(ds.poses[0])["depth"]
+            valid = depth > 0
+            both = valid & (gt > 0)
+            rel = float(np.median(np.abs(depth[both] - gt[both]) / gt[both]))
+            extra = {"valid_share": float(valid.mean()), "median_rel_err": rel,
+                     "slab_fwd": kernels.slab_fwd.launches - fwd0}
+            ok = ok and valid.mean() > 0.25 and rel < 0.08 and extra["slab_fwd"] >= 3
+        line("tum", step="12d", dataset=name, built=True, frame_ok=ok,
+             read_ms=f"{read_ms:.1f}", **extra)
+        require(ok, f"12d: {name}'s first frame is wrong with OpenCV present: {extra}")
+    return launches
+
+
 def pose_error(R, t, R_gt, t_gt) -> tuple[float, float]:
     """(rotation error in rad, camera-centre error) between two w2c poses."""
     import torch
@@ -1470,9 +1734,12 @@ def main() -> int:
     mono_launches = mono_phase(smi)
     # 11. The concurrent mode, its checkpoint and the resumes.
     async_launches = async_phase(smi, sync)
+    # 12. The TUM layout: fixture, parser, system, OpenCV's absence.
+    tum_launches = tum_phase(smi, sync)
     for row in report:
         for path, counts in (("system", sys_launches), ("refine", refine_launches),
-                             ("mono", mono_launches), ("async", async_launches)):
+                             ("mono", mono_launches), ("async", async_launches),
+                             ("tum", tum_launches)):
             row[f"launches_{path}"] = counts[row["name"]]
             row["launches"] += counts[row["name"]]
     line("done", total_s=f"{time.perf_counter() - t_start:.1f}")

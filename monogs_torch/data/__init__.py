@@ -1,5 +1,5 @@
-"""Datasets (port of monogs_tpu/data/). The synthetic RGB-D and monocular
-sequences are ported; the other parsers wait (ROADMAP Queue 1 item 12)."""
+"""Datasets (port of monogs_tpu/data/): TUM, Replica, EuRoC, Kubric, DAVIS,
+RealSense and the synthetic sequences (RGB-D, monocular, stereo)."""
 
 from __future__ import annotations
 
@@ -15,16 +15,36 @@ def load_dataset(config: dict, device="cuda"):
 
 def _make_dataset(config: dict, device):
     typ = config["Dataset"]["type"]
+    if typ == "tum":
+        from .tum import TUMDataset
+
+        return TUMDataset(config)
+    if typ == "replica":
+        from .replica import ReplicaDataset
+
+        return ReplicaDataset(config)
+    if typ == "euroc":
+        from .euroc import EurocDataset
+
+        return EurocDataset(config)
+    if typ == "kubric":
+        from .kubric import KubricDataset
+
+        return KubricDataset(config)
+    if typ == "davis":
+        from .davis import DavisDataset
+
+        return DavisDataset(config)
+    if typ == "realsense":
+        from .realsense import RealsenseDataset
+
+        return RealsenseDataset(config)
     if typ == "synthetic":
         if config["Dataset"].get("sensor_type") == "stereo":
-            raise NotImplementedError(
-                "the stereo synthetic dataset is not ported yet (it needs "
-                "SGBM, and the card machine has no OpenCV): ROADMAP Queue 1 "
-                "item 12")
+            from .synthetic import SyntheticStereoDataset
+
+            return SyntheticStereoDataset(config, device=device)
         from .synthetic import SyntheticDataset
 
         return SyntheticDataset(config, device=device)
-    if typ in ("tum", "replica", "euroc", "kubric", "davis", "realsense"):
-        raise NotImplementedError(
-            f"the {typ} dataset parser is not ported yet: ROADMAP Queue 1 item 12")
     raise ValueError(f"Unknown dataset type: {typ}")

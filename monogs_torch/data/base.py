@@ -11,19 +11,49 @@ applied here, so the SLAM layer only sees pinhole images. The object ids
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from ..ops.graphics import Intrinsics
 
 
-def _cv2():
+def cv2_for(what: str):
+    """OpenCV, for the steps the port leaves to it as the JAX package does
+    (undistortion and rectification maps, remap, SGBM); ImportError naming
+    `what` where it is missing."""
     try:
         import cv2
     except ImportError as e:
-        raise ImportError("a distorted calibration needs OpenCV (cv2) to "
-                          "undistort the images, and it is not installed") from e
+        raise ImportError(f"{what} needs OpenCV (cv2), which is not installed") from e
     return cv2
+
+
+def digit_key(f: str) -> int:
+    """Sort key of a frame file: the digits of its name as one number."""
+    return int("".join(filter(str.isdigit, os.path.basename(f))) or 0)
+
+
+def quat_wxyz_to_rotmat(q) -> np.ndarray:
+    """(w, x, y, z), not necessarily normalised -> (3, 3) rotation."""
+    w, x, y, z = q
+    n = w * w + x * x + y * y + z * z
+    s = 0.0 if n == 0 else 2.0 / n
+    return np.array([
+        [1 - s * (y * y + z * z), s * (x * y - z * w), s * (x * z + y * w)],
+        [s * (x * y + z * w), 1 - s * (x * x + z * z), s * (y * z - x * w)],
+        [s * (x * z - y * w), s * (y * z + x * w), 1 - s * (x * x + y * y)],
+    ])
+
+
+def segmentation_ids(seg: np.ndarray) -> np.ndarray:
+    """Object ids of a decoded segmentation image (RGB order): a colour
+    image's blue channel, which is the channel OpenCV's BGR order puts
+    first."""
+    if seg.ndim == 3:
+        seg = seg[..., 2]
+    return seg.astype(np.int32)
 
 
 class BaseDataset:
@@ -42,7 +72,7 @@ class BaseDataset:
         self.dist_coeffs = None
         self.map1x = self.map1y = None
         if calib.get("distorted", False):
-            cv2 = _cv2()
+            cv2 = cv2_for("undistorting the images of a distorted calibration")
             self.dist_coeffs = np.array([
                 calib.get("k1", 0.0), calib.get("k2", 0.0),
                 calib.get("p1", 0.0), calib.get("p2", 0.0), calib.get("k3", 0.0),
@@ -71,7 +101,7 @@ class BaseDataset:
     def undistort_rgb(self, rgb: np.ndarray) -> np.ndarray:
         if self.map1x is None:
             return rgb
-        cv2 = _cv2()
+        cv2 = cv2_for("undistorting the images of a distorted calibration")
         return cv2.remap(rgb, self.map1x, self.map1y, cv2.INTER_LINEAR)
 
     def mask_from_segmentation(self, segmentation: np.ndarray) -> np.ndarray:

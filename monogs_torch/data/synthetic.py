@@ -24,7 +24,7 @@ import os
 import numpy as np
 import torch
 
-from .base import BaseDataset
+from .base import BaseDataset, cv2_for
 
 DEFAULT_CONFIG = {
     "Dataset": {
@@ -366,3 +366,86 @@ class SyntheticDataset(BaseDataset):
         if not self.use_depth:
             d = dict(d, depth=None)
         return d
+
+
+class SyntheticStereoDataset(SyntheticDataset):
+    """The stereo sensor over the synthetic scene (port of the JAX
+    package's SyntheticStereoDataset): a rectified cam0 / cam1 pair a frame,
+    cam1 the left camera moved `baseline` metres along its +x axis, both
+    rendered by the port's rasterizer on the dataset's device (the slab
+    kernels on a card), then the EuRoC host pipeline through OpenCV:
+    initUndistortRectifyMap per camera (a distortion-free rig, so the remap
+    is the identity warp, on the code path a distorted rig takes), remap,
+    SGBM disparity, depth = fx * baseline / disparity. The depth the SLAM
+    sees is SGBM's estimate, never the rendered depth. Without OpenCV the
+    constructor raises ImportError."""
+
+    def __init__(self, config: dict | None = None, device="cuda"):
+        super().__init__(config, device=device)
+        syn = (config or DEFAULT_CONFIG)["Dataset"].get(
+            "synthetic", DEFAULT_CONFIG["Dataset"]["synthetic"])
+        st = syn.get("stereo", {})
+        self.baseline = float(st.get("baseline", 0.08))
+        self.num_disparities = int(st.get("num_disparities", 128))
+        self.sgbm_block_size = int(st.get("block_size", 11))
+        self.uniqueness = int(st.get("uniqueness_ratio", 10))
+        # Right-camera w2c: x_right = x_left - (b, 0, 0) in camera coordinates.
+        self._T_lr = np.eye(4, dtype=np.float64)
+        self._T_lr[0, 3] = -self.baseline
+        self._maps = self._rectify_maps()
+        # A cache directory of its own: the frames depend on the stereo
+        # parameters too (the parent key covers scene, trajectory, calibration).
+        if self._disk_cache is not None:
+            tag = hashlib.sha1(repr((
+                "stereo", 1, self.baseline, self.num_disparities, self.sgbm_block_size,
+                self.uniqueness)).encode()).hexdigest()[:12]
+            self._disk_cache = self._disk_cache + "-st" + tag
+            os.makedirs(self._disk_cache, exist_ok=True)
+
+    def _rectify_maps(self):
+        """Zero distortion, R = identity, K_new = K: OpenCV's rectification
+        on the path a distorted rig takes."""
+        cv2 = cv2_for("the stereo synthetic rig (rectification and SGBM depth)")
+        K = np.array([[self.intrinsics.fx, 0.0, self.intrinsics.cx],
+                      [0.0, self.intrinsics.fy, self.intrinsics.cy], [0.0, 0.0, 1.0]])
+        size = (self.intrinsics.width, self.intrinsics.height)
+        return tuple(cv2.initUndistortRectifyMap(K, np.zeros(5), np.eye(3), K, size,
+                                                 cv2.CV_32FC1) for _ in range(2))
+
+    def _render_frame(self, idx: int) -> dict:
+        cv2 = cv2_for("the stereo synthetic rig (rectification and SGBM depth)")
+        T_l = self.poses[idx]
+        T_r = self._T_lr @ T_l
+        # Both eyes render the same scene of the frame, the moving object too.
+        scene, obj = self._scene_at(idx)
+        left = self._render_pose(T_l, scene=scene)
+        right = self._render_pose(T_r, scene=scene)
+        m_l, m_r = self._maps
+
+        g_l = (np.clip(left["rgb"], 0, 1) * 255).astype(np.uint8)
+        g_r = (np.clip(right["rgb"], 0, 1) * 255).astype(np.uint8)
+        g_l = cv2.remap(cv2.cvtColor(g_l, cv2.COLOR_RGB2GRAY), *m_l, cv2.INTER_LINEAR)
+        g_r = cv2.remap(cv2.cvtColor(g_r, cv2.COLOR_RGB2GRAY), *m_r, cv2.INTER_LINEAR)
+
+        # SGBM, numDisparities sized for the room's near field (the least
+        # depth is fx * b / numDisparities).
+        sgbm = cv2.StereoSGBM_create(minDisparity=0, numDisparities=self.num_disparities,
+                                     blockSize=self.sgbm_block_size)
+        sgbm.setUniquenessRatio(self.uniqueness)
+        disp = sgbm.compute(g_l, g_r).astype(np.float32) / 16.0
+        valid = disp > 0.0
+        bf = self.intrinsics.fx * self.baseline
+        depth = np.where(valid, bf / np.maximum(disp, 1e-6), 0.0)
+        # Matches beyond the scene's range (tiny disparities) are outliers.
+        depth = np.where(depth < 100.0, depth, 0.0)
+        valid = depth > 0.0
+
+        seg = (np.zeros(depth.shape, np.int32) if obj is None
+               else self._segmentation_for(left, T_l, obj))
+        return {
+            "rgb": left["rgb"],
+            "depth": depth.astype(np.float32),
+            "pose": T_l.astype(np.float32),
+            "mask": valid & left["mask"],
+            "segmentation": seg,
+        }

@@ -31,6 +31,12 @@ def knn_mean_sq_dist(points: torch.Tensor, mask: torch.Tensor | None = None,
     col = torch.arange(N, device=points.device)[None, :]
     out = torch.empty(N, dtype=points.dtype, device=points.device)
     for s in range(0, N, block):
+        if not points.is_cuda and not bool(mask[s:s + block].any()):
+            # A block of masked rows only gets 0s. Skipped on the host alone,
+            # where the test costs no device sync: an extend event's
+            # candidates (max_new of them) are mostly masked.
+            out[s:s + block] = 0.0
+            continue
         rows = points[s:s + block]
         cross = rows @ points.T                                   # (B, N)
         d2 = sq[s:s + block, None] - 2.0 * cross + sq[None, :]

@@ -43,7 +43,7 @@ def _same(t, j):
 
 
 def test_the_configs_are_all_here():
-    assert len(CONFIGS) == 53
+    assert len(CONFIGS) == 54
 
 
 @pytest.mark.parametrize("path", CONFIGS)

@@ -14,6 +14,7 @@ read as the port's ground truth.
 
 import copy
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -123,10 +124,12 @@ def test_the_disk_cache_is_not_shared_with_jax(tmp_path, monkeypatch):
     assert ts.cache_root() != os.path.expanduser("~/.cache/monogs_synth")
 
 
-def test_load_dataset_preloads_and_refuses_what_is_not_ported():
+def test_load_dataset_preloads_and_refuses_what_is_not_ported(monkeypatch):
     """Dataset.preload "device" places every frame's arrays on the given
-    device (here the CPU) as tensors; the stereo sensor and the parsers not
-    ported yet raise NotImplementedError naming their ROADMAP item."""
+    device (here the CPU) as tensors. What cannot load fails loudly: an
+    unknown dataset type (ValueError, misspelt or absent), and the stereo
+    sensor where OpenCV (its rectification and SGBM) is missing
+    (ImportError naming OpenCV)."""
     from monogs_torch.data import load_dataset
 
     cfg = copy.deepcopy(CASES["wall"])
@@ -137,10 +140,11 @@ def test_load_dataset_preloads_and_refuses_what_is_not_ported():
     for k in ("rgb", "depth", "pose", "mask", "segmentation"):
         assert torch.is_tensor(ds[2][k])
         np.testing.assert_array_equal(ds[2][k].numpy(), plain[2][k])
+    for bad in ({"Dataset": {"type": "nope"}}, {"Dataset": {"type": "TUM"}}):
+        with pytest.raises(ValueError, match="Unknown dataset type"):
+            load_dataset(bad, device="cpu")
     stereo = copy.deepcopy(CASES["wall"])
     stereo["Dataset"]["sensor_type"] = "stereo"
-    for bad in (stereo, {"Dataset": {"type": "tum"}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            load_dataset(bad, device="cpu")
-    with pytest.raises(ValueError):
-        load_dataset({"Dataset": {"type": "nope"}}, device="cpu")
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError, match="OpenCV"):
+        load_dataset(stereo, device="cpu")
