@@ -123,6 +123,31 @@ Phases, one line each; any failure propagates and exits non-zero:
      checks of the PLY, kernels, backends and twins, a synthetic GT render
      in 12c, a parser that builds without OpenCV or raises without naming
      it, and a first frame that is wrong where OpenCV exists;
+ 13. the live web viewer: a room.yaml SLAM (640x480) with start_viewer on a
+     free port, 6 frames synchronous; /, /state, /render in each of the
+     five shaders at the default 480x360 view (render's tile 16: the last
+     tile row half outside the image), a kf= view, /screenshot (640x480)
+     and /input, each 200 with an image of its size; ms per /render
+     (request to bytes); then frames 6-10 under run_async while a client
+     thread repeats the requests; each shader's render_fn output held
+     against the CPU twin on a copy of the state (1e-5, the depth shader
+     1e-4; the full view against the twin on the card at 1e-5, and at most
+     VIEWER_FULL_PIXELS_OFF pixels past 1e-5 from the CPU twin) and each
+     PNG (frusta off) within one level of the twin's; launches per stream,
+     the viewer's apart. It fails on an answer other than 200, ATE >=
+     0.05 m or PSNR <= 15 dB after the concurrent frames, a view off the
+     twin, or fewer slab_fwd launches on the viewer's stream than renders;
+ 14. the window-sharded mapper at world size 1 on NCCL (a group of one
+     rank: NCCL refuses two ranks on one card): one sharded mapping
+     iteration on phase 6's state against the unsharded one (bit-identity
+     reported; the gate is the CPU suite's tolerances: loss 1e-5, first
+     moments at the gradient floor, xyz and statistics 1e-5, window 1e-6),
+     the unsharded one against itself, ms per iteration of both, one
+     reduce-scatter an iteration, its launches on a line of their own;
+     then the command line on room.yaml with mesh_devices 1 for 6 frames,
+     the counts set to 0 just before: check_run's checks (no twin or
+     oracle called, every path kernel launched), every mapping iteration
+     the sharded one, ATE < 0.05 m, PSNR > 15 dB;
 then the kernels' JSON line (each row's `launches` is the sum of the
 per-path counts beside it; its times, bound and error are at the mapping
 shapes, or the probe's) and, last, {"ok": true, "device": {...}}.
@@ -1472,6 +1497,393 @@ def tum_phase(smi: str, sync: dict) -> dict:
     return launches
 
 
+# Phase 13: the live web viewer on the SLAM of room.yaml at its full width
+# (640x480, the 150,000-Gaussian room, the config's budgets): 6 frames
+# synchronous (keyframes 0 and 5: the map initialisation and one mapping
+# event), then frames 6-10 concurrent (run_async from frame 6, keyframe 10's
+# event in flight) with the same requests made meanwhile; cut from 200
+# frames. The default view is 480x360 at render's tile 16 (22.5 tile rows:
+# the last row lies half outside the image).
+VIEWER_SYNC_FRAMES, VIEWER_FRAMES = 6, 11
+VIEWER_SHADERS = ("rgb", "depth", "segmentation", "time", "ellipsoids")
+VIEWER_DIR = os.path.join("build", "viewer_smoke")
+# The full (640x480) view's binning overflows at tile 16 (max_dup), and a
+# float32 rounding apart between the card's projection and the CPU's can
+# move an entry across the cap: 1 pixel of 307,200 was off in each chip run.
+# The view is held against the twin on the card at 1e-5, and to at most
+# this many pixels past 1e-5 from the CPU twin.
+VIEWER_FULL_PIXELS_OFF = 8
+
+
+def _fetch(url: str) -> tuple:
+    """GET url -> (status, content type, body, ms from request to bytes)."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r:
+            body = r.read()
+            return r.status, r.headers.get("Content-Type"), body, \
+                (time.perf_counter() - t0) * 1e3
+    except urllib.error.HTTPError as e:
+        return e.code, None, b"", (time.perf_counter() - t0) * 1e3
+
+
+def _viewer_requests(kf: int) -> list:
+    return (["/", "/state"] + [f"/render?follow=1&shader={s}" for s in VIEWER_SHADERS]
+            + [f"/render?kf={kf}&shader=rgb", "/screenshot?follow=1&shader=rgb", "/input"])
+
+
+def _on_cpu(x):
+    """A (nested NamedTuple / dict) state's tensors copied to the CPU."""
+    import torch
+
+    if torch.is_tensor(x):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _on_cpu(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_on_cpu(v) for v in x))
+    return x
+
+
+def viewer_phase(smi: str) -> dict:
+    """Phase 13, the live web viewer on the card. A room.yaml SLAM with
+    start_viewer on a free port runs 6 frames; then /, /state, /render in
+    each shader at the default 480x360 view, a kf= view, /screenshot
+    (640x480) and /input, each answered 200 with an image of its size; each
+    shader's render_fn output held against the same view from the CPU twin
+    on a copy of the state (rgb-like 1e-5, the depth shader 1e-4; the full
+    view too), and each /render PNG's pixels (frusta off) within one level
+    of the twin's. Then frames 6-10 under run_async while a client thread
+    repeats the same requests: every answer 200, the run's ATE < 0.05 m
+    and PSNR > 15 dB (phase 9's gates). ms per /render (request to bytes)
+    idle and during the run; launches per stream, the viewer's apart.
+    -> each kernel's launches in the phase (the twin checks apart)."""
+    import threading
+    import types
+
+    import numpy as np
+    import torch
+    from monogs_torch.ops import kernels
+    from monogs_torch.utils.images import decode_png, read_png
+    from monogs_torch.viewer.server import make_render_fn
+
+    shutil.rmtree(VIEWER_DIR, ignore_errors=True)
+    slam = _slam_of(SYSTEM_ARGV[1])
+    slam.scfg.save_dir = VIEWER_DIR
+    viewer = slam.start_viewer(port=0)
+    base = f"http://127.0.0.1:{viewer.port}"
+    counted = (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels,
+               kernels.tile_order)
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        slam.run(n_frames=VIEWER_SYNC_FRAMES)
+        sync_s = time.perf_counter() - t0
+        kf = sorted(slam.kf_list)[0]
+        W, H = slam.intr.width, slam.intr.height
+        scale = min(1.0, 480 / W)
+        view = (int(H * scale), int(W * scale), 3)
+        idle = {}
+        for path in _viewer_requests(kf):
+            status, ctype, body, ms = _fetch(base + path)
+            idle[path] = (status, ms)
+            require(status == 200, f"13: {path} answered {status}")
+            if path.startswith("/render"):
+                require(decode_png(body).shape == view, f"13: {path} is not a {view} PNG")
+            elif path.startswith("/screenshot"):
+                shot = read_png(json.loads(body)["path"])
+                require(shot.shape == (H, W, 3), "13: the screenshot is not full size")
+            elif path == "/input":
+                require(decode_png(body).shape == (H, 3 * W, 3), "13: /input's strip")
+        render_ms = [ms for p, (_, ms) in idle.items() if p.startswith("/render")]
+        line("viewer", step="13a", frames=VIEWER_SYNC_FRAMES, run_s=f"{sync_s:.1f}",
+             port=viewer.port, requests=len(idle), all_200=True,
+             render_ms_median=statistics.median(render_ms), render_ms_max=max(render_ms),
+             screenshot_ms=idle["/screenshot?follow=1&shader=rgb"][1],
+             input_ms=idle["/input"][1], card=repr(smi))
+
+        # The same requests during a concurrent run.
+        answers, stop = [], threading.Event()
+
+        def client():
+            while not stop.is_set():
+                for path in _viewer_requests(kf):
+                    answers.append((path, *_fetch(base + path)[::3]))
+
+        client_t = threading.Thread(target=client, name="viewer-client", daemon=True)
+        client_t.start()
+        t0 = time.perf_counter()
+        try:
+            ate = slam.run_async(n_frames=VIEWER_FRAMES, start_frame=VIEWER_SYNC_FRAMES)
+        finally:
+            stop.set()
+            client_t.join(timeout=300)
+        async_s = time.perf_counter() - t0
+        require(not client_t.is_alive(), "13: the viewer client did not stop")
+        launches = {k.__name__: k.launches for k in kernels.LAUNCHERS}
+        by_stream = {k.__name__: dict(k.by_stream) for k in counted}
+        ev = slam.eval_rendering(every=5, label="viewer")
+        bad = [(p, st) for p, st, _ in answers if st != 200]
+        busy_ms = [ms for p, st, ms in answers if p.startswith("/render")]
+        line("viewer", step="13b", frames=f"{VIEWER_SYNC_FRAMES}-{VIEWER_FRAMES - 1}",
+             run_s=f"{async_s:.1f}", requests=len(answers), not_200=len(bad),
+             render_ms_median=statistics.median(busy_ms) if busy_ms else None,
+             render_ms_max=max(busy_ms, default=None), ate_rmse=ate, psnr=ev["mean_psnr"],
+             ssim=ev["mean_ssim"], active=int(slam.state.gmap.num_active),
+             kf_history=sorted(slam.kf_history), card=repr(smi))
+        streams = {"default": "tracker", kernels.stream_key(slam.mapper_stream): "mapper",
+                   kernels.stream_key(viewer._render_fn.stream): "viewer"}
+        for name, by in by_stream.items():
+            line("launches", path="viewer", kernel=name,
+                 **{streams.get(k, k): v for k, v in by.items()})
+        require(not bad and len(answers) >= len(_viewer_requests(kf)),
+                f"13: requests during run_async: {len(answers)} made, not 200: {bad[:5]}")
+        require(ate < SYSTEM_ATE_MAX, f"13: ATE {ate:.4f} m is not under {SYSTEM_ATE_MAX}")
+        require(ev["mean_psnr"] > SYSTEM_PSNR_MIN,
+                f"13: PSNR {ev['mean_psnr']:.2f} dB is not over {SYSTEM_PSNR_MIN}")
+        viewer_fwd = by_stream["slab_fwd"].get(kernels.stream_key(viewer._render_fn.stream), 0)
+        require(viewer_fwd >= len(render_ms) + len(busy_ms),
+                f"13: slab_fwd launched {viewer_fwd} times on the viewer's stream for "
+                f"{len(render_ms) + len(busy_ms)} renders")
+
+        # The card's render_fn against the twins: the CPU twin on a copy of
+        # the state, and the twin on the card (the same projection and bins,
+        # the slab dispatcher sent to the plain forward); the served PNGs
+        # against the CPU twin's quantised image. The full view: see
+        # VIEWER_FULL_PIXELS_OFF.
+        from monogs_torch.ops import tile_raster
+
+        def card_twin(*a, **kw):
+            saved = tile_raster._fwd_slab
+            tile_raster._fwd_slab = (lambda f, p, c, order, cfg, K, emit=True:
+                                     tile_raster._fwd_slab_plain(f, p, c, cfg, K, emit))
+            try:
+                return viewer._render_fn(*a, **kw)[0]
+            finally:
+                tile_raster._fwd_slab = saved
+
+        st_cpu = _on_cpu(slam.read_state())
+        twin = make_render_fn(types.SimpleNamespace(
+            device=torch.device("cpu"), intr=slam.intr, mcfg=slam.mcfg,
+            read_state=lambda: st_cpu))
+        pkt = viewer.slot.get()
+        views = [(s, "follow", pkt.cur_pose, False) for s in VIEWER_SHADERS]
+        kf_last = sorted(pkt.kf_poses)[0]
+        views += [("rgb", f"kf{kf_last}", pkt.kf_poses[kf_last], False),
+                  ("rgb", "follow", pkt.cur_pose, True)]
+        for shader, where, (R, t), full in views:
+            tic = time.perf_counter()
+            card, _ = viewer._render_fn(R, t, shader, full=full)
+            card_ms = (time.perf_counter() - tic) * 1e3
+            tic = time.perf_counter()
+            plain, _ = twin(R, t, shader, full=full)
+            plain_ms = (time.perf_counter() - tic) * 1e3
+            on_card = card_twin(R, t, shader, full=full)
+            err = float(np.abs(card - plain).max())
+            err_card = float(np.abs(card - on_card).max())
+            tol = 1e-4 if shader == "depth" else 1e-5
+            png_err = None
+            if where == "follow" and not full:
+                body = _fetch(f"{base}/render?follow=1&frusta=0&shader={shader}")[2]
+                q = (np.clip(plain, 0, 1) * 255).astype(np.uint8).astype(np.int16)
+                png_err = int(np.abs(decode_png(body).astype(np.int16) - q).max())
+            off = int((np.abs(card - plain) > tol).any(-1).sum())
+            line("viewer", step="13c", shader=shader, view=where, shape=card.shape,
+                 max_abs_err_cpu_twin=err, max_abs_err_card_twin=err_card,
+                 twins_apart=float(np.abs(on_card - plain).max()),
+                 pixels_off_cpu_twin=off, tol=tol, png_levels=png_err,
+                 card_ms=f"{card_ms:.2f}", plain_cpu_ms=f"{plain_ms:.1f}")
+            require(err_card <= tol
+                    and (off <= VIEWER_FULL_PIXELS_OFF if full else err <= tol)
+                    and (png_err is None or png_err <= 1),
+                    f"13: the {shader} view ({where}, full={full}) is off its twins: "
+                    f"CPU {err} ({off} pixels past {tol}), card {err_card}, "
+                    f"PNG {png_err} levels")
+    finally:
+        viewer.stop()
+    return launches
+
+
+# Phase 14: the sharded mapper at world size 1 (NCCL refuses two ranks on
+# one card): a real NCCL group, the sharded iteration's reduce-scatter and
+# all-gather on the card, held against the unsharded iteration on phase 6's
+# state (bench_mapping's widths); then the command line on room.yaml with
+# mesh_devices 1 for 6 frames (keyframes 0 and 5), its group of one made by
+# the SLAM itself.
+SHARD_FRAMES = 6
+SHARD_CONFIG = os.path.join("build", "room_mesh1_smoke.yaml")
+SHARD_ARGV = ["--config", SHARD_CONFIG, "--n-frames", str(SHARD_FRAMES), "--eval",
+              "--device", "cuda", "--backend", "slab"]
+
+
+def sharded_phase(smi: str) -> dict:
+    """Phase 14, the window-sharded mapper on the card.
+    14a, on a world-size-1 NCCL group: one sharded mapping iteration on
+    phase 6's state against the unsharded one (expected bit-identical; the
+    gate is the CPU suite's: loss 1e-5 relative, first moments at the
+    gradient floor, xyz and the statistics 1e-5, the window 1e-6), the
+    unsharded iteration against itself (the card's run-to-run determinism),
+    one reduce-scatter of the packed gradients an iteration, ms per
+    iteration of both (spans of 8 alternated, median of 4) and their
+    device busy time under the profiler; one sharded iteration's launches
+    on a line of their own.
+    14b: main() on room.yaml with mesh_devices 1 for 6 frames, the counts
+    set to 0 just before: check_run's checks, every mapping iteration the
+    sharded one (none unsharded), ATE < 0.05 m, PSNR > 15 dB.
+    -> each kernel's launches in 14b."""
+    import torch
+    import torch.distributed as dist
+    from monogs_torch.ops import kernels
+    from monogs_torch.parallel import overlap
+    from monogs_torch.parallel.mesh import make_mesh
+    from monogs_torch.slam import mapper as tm
+    from monogs_torch.utils.ckpt import state_tensors
+
+    dev = torch.device("cuda")
+    state, intr, cfg = build_mapping_state(dev)
+    span_cfg = dataclasses.replace(cfg, converged_eps=0.0)
+    mesh = make_mesh(1, "cuda")
+    try:
+        def one(m=None):
+            out = tm.mapping_span(state, intr, span_cfg, False, 0, 1, mesh=m)
+            torch.cuda.synchronize()
+            return out
+
+        def span_ms(m=None):
+            tic = time.perf_counter()
+            tm.mapping_span(state, intr, span_cfg, False, 0, cfg.rebin_every, mesh=m)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - tic) / cfg.rebin_every * 1e3
+
+        def diff(a, b):
+            ta, tb = state_tensors(a[0]), state_tensors(b[0])
+            errs = {k: float((ta[k].double() - tb[k].double()).abs().max())
+                    for k in ta if ta[k].is_floating_point()}
+            same = all(torch.equal(ta[k], tb[k]) for k in ta) and torch.equal(
+                a[1].loss, b[1].loss) and torch.equal(a[1].vis_filter, b[1].vis_filter)
+            return same, errs
+
+        def busy(m=None):
+            prof = device_profile(lambda: tm.mapping_span(
+                state, intr, span_cfg, False, 0, cfg.rebin_every, mesh=m), cfg.rebin_every)
+            return None if prof is None else (prof["device_busy_ms_per_iter"],
+                                              prof["wall_ms_per_iter"])
+
+        ref, ref2 = one(), one()
+        calls = {"reduce_scatter_tensor": 0, "all_gather_into_tensor": 0, "all_reduce": 0}
+        saved = {n: getattr(dist, n) for n in calls}
+
+        def counting(name):
+            def call(*a, **kw):
+                calls[name] += 1
+                return saved[name](*a, **kw)
+            return call
+
+        kernels.reset_launches()
+        for n in calls:
+            setattr(dist, n, counting(n))
+        try:
+            got = one(mesh)
+        finally:
+            for n, fn in saved.items():
+                setattr(dist, n, fn)
+        per_span = dict(calls)
+        line("launches", path="sharded_iteration", note="14a: one span of 1",
+             **{k.__name__: k.launches for k in kernels.LAUNCHERS})
+        # The host's speed drifts within a call: the two alternate, spans of
+        # 8, median of 4 each.
+        times = {"plain": [], "shard": []}
+        for _ in range(4):
+            times["plain"].append(span_ms())
+            times["shard"].append(span_ms(mesh))
+        plain_ms, shard_ms = (statistics.median(times[k]) for k in ("plain", "shard"))
+        plain_busy, shard_busy = busy(), busy(mesh)
+        same, errs = diff(got, ref)
+        det, _ = diff(ref2, ref)
+        (s2, a2), (s1, a1) = got, ref
+        loss_rel = abs(float(a2.loss) - float(a1.loss)) / max(abs(float(a1.loss)), 1e-12)
+        mu_ok = all(bool(((s2.adam.mu[k] - m1).abs()
+                          <= 2e-3 * m1.abs() + 1e-6 + 1e-4 * m1.abs().reshape(
+                              m1.shape[0], -1).amax(0).reshape((1,) + m1.shape[1:])).all())
+                    for k, m1 in s1.adam.mu.items())
+        close = (loss_rel <= 1e-5 and mu_ok
+                 and max(errs[k] for k in errs if k.startswith("gmap.params.xyz")
+                         or k in ("gmap.xyz_grad_accum", "gmap.max_radii2d")) <= 1e-5
+                 and max(errs[k] for k in errs if k.startswith("window.frames.")) <= 1e-6)
+        line("sharded", step="14a", backend=dist.get_backend(), world=dist.get_world_size(),
+             capacity=M_CAP, live=M_LIVE, window=WIN, bit_identical=same,
+             unsharded_deterministic=det, loss_rel_err=loss_rel,
+             max_err_params=max(v for k, v in errs.items() if k.startswith("gmap.params")),
+             max_err_moments=max(v for k, v in errs.items() if k.startswith("adam.")),
+             max_err_window=max(v for k, v in errs.items() if k.startswith("window.")),
+             collectives_span_of_1=repr(per_span), card=repr(smi))
+        line("sharded", step="14a", sharded_ms_per_iter=shard_ms,
+             unsharded_ms_per_iter=plain_ms, iters_per_span=cfg.rebin_every, spans=4,
+             sharded_all=repr(times["shard"]), unsharded_all=repr(times["plain"]),
+             card=repr(smi))
+        line("profile", path="sharded", iters=cfg.rebin_every,
+             device_busy_ms_per_iter=shard_busy and shard_busy[0],
+             wall_ms_per_iter=shard_busy and shard_busy[1],
+             unsharded_device_busy_ms_per_iter=plain_busy and plain_busy[0],
+             unsharded_wall_ms_per_iter=plain_busy and plain_busy[1], card=repr(smi))
+        require(dist.get_backend() == "nccl", "14a: the group is not NCCL")
+        # A span of one iteration: the packed gradients' reduce-scatter and
+        # the parameters' all-gather, then the span end's gathers.
+        require(per_span["reduce_scatter_tensor"] == 1
+                and per_span["all_gather_into_tensor"] >= 1,
+                f"14a: the sharded iteration's collectives: {per_span}")
+        require(close, f"14a: the sharded iteration is off the unsharded one: loss "
+                       f"{loss_rel:.3e}, moments within the floor {mu_ok}, {errs}")
+        del state, ref, ref2, got, s1, s2
+    finally:
+        dist.destroy_process_group()
+
+    # 14b. The command line with mesh_devices 1 and no group: the SLAM makes
+    # its own (NCCL, one rank).
+    with open(SHARD_CONFIG, "w") as fh:
+        json.dump({"inherit_from": SYSTEM_ARGV[1], "System": {"mesh_devices": 1}}, fh)
+    iters = {"sharded": 0, "unsharded": 0}
+    saved_iter = (overlap.sharded_mapping_iter, tm._mapping_iter)
+
+    def counted(kind, fn):
+        def call(*a, **kw):
+            iters[kind] += 1
+            return fn(*a, **kw)
+        return call
+
+    overlap.sharded_mapping_iter = counted("sharded", saved_iter[0])
+    tm._mapping_iter = counted("unsharded", saved_iter[1])
+    try:
+        out, c = drive_cli(SHARD_ARGV)
+        backend = dist.get_backend() if dist.is_initialized() else None
+        world = dist.get_world_size() if dist.is_initialized() else None
+    finally:
+        overlap.sharded_mapping_iter, tm._mapping_iter = saved_iter
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    slam = out["slam"]
+    check_run(out, c, smi, "sharded")
+    with open(os.path.join(out["save_dir"], "psnr", "final", "final_result.json")) as fh:
+        ev = json.load(fh)
+    line("sharded", step="14b", config=SYSTEM_ARGV[1], mesh_devices=1, backend=backend,
+         world=world, frames=out["n_frames"], fps=out["fps"], wall_s=out["wall_s"],
+         ate_rmse=out["final_ate_rmse"], psnr=ev["mean_psnr"], ssim=ev["mean_ssim"],
+         active=out["map_active"], window_capacity=slam._window_capacity(),
+         sharded_iters=iters["sharded"], unsharded_iters=iters["unsharded"], card=repr(smi))
+    require(slam.mesh is not None and slam.mesh.size == 1 and backend == "nccl",
+            f"14b: the SLAM's mesh {slam.mesh}, its group {backend}")
+    require(iters["sharded"] > 0 and iters["unsharded"] == 0,
+            f"14b: mapping iterations sharded / unsharded: {iters}")
+    require(out["final_ate_rmse"] < SYSTEM_ATE_MAX,
+            f"14b: ATE {out['final_ate_rmse']:.4f} m is not under {SYSTEM_ATE_MAX}")
+    require(ev["mean_psnr"] > SYSTEM_PSNR_MIN,
+            f"14b: PSNR {ev['mean_psnr']:.2f} dB is not over {SYSTEM_PSNR_MIN}")
+    return c["launches"]
+
+
 def pose_error(R, t, R_gt, t_gt) -> tuple[float, float]:
     """(rotation error in rad, camera-centre error) between two w2c poses."""
     import torch
@@ -1736,10 +2148,14 @@ def main() -> int:
     async_launches = async_phase(smi, sync)
     # 12. The TUM layout: fixture, parser, system, OpenCV's absence.
     tum_launches = tum_phase(smi, sync)
+    # 13. The live viewer; 14. the sharded mapper.
+    viewer_launches = viewer_phase(smi)
+    sharded_launches = sharded_phase(smi)
     for row in report:
         for path, counts in (("system", sys_launches), ("refine", refine_launches),
                              ("mono", mono_launches), ("async", async_launches),
-                             ("tum", tum_launches)):
+                             ("tum", tum_launches), ("viewer", viewer_launches),
+                             ("sharded", sharded_launches)):
             row[f"launches_{path}"] = counts[row["name"]]
             row["launches"] += counts[row["name"]]
     line("done", total_s=f"{time.perf_counter() - t_start:.1f}")

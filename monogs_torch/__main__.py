@@ -7,6 +7,9 @@
     python -m monogs_torch --config configs/synthetic/room.yaml --async-mode --ckpt-every 3
     python -m monogs_torch --config configs/synthetic/room.yaml --resume RUN_DIR/ckpt
     python -m monogs_torch --resume-run RUN_DIR --eval
+    python -m monogs_torch --config configs/synthetic/room.yaml --viewer 8890
+    python -m monogs_torch --config MESH2.yaml --device cpu \
+        --dist-coordinator 127.0.0.1:29512 --dist-procs 2 --dist-rank R   (R = 0, 1)
 
 Creates <Results.save_dir>/<dataset type>_<scene>/<timestamp>/ (with
 --resume-run: RUN_DIR itself) with the merged config (config.yml), runs
@@ -27,6 +30,15 @@ RUN_DIR/ckpt_slam_end and RUN_DIR/ckpt_refined (--no-phase-ckpt: neither);
 --resume-run RUN_DIR skips every phase it records complete (a run that
 died in its frame loop continues from RUN_DIR/ckpt) and writes the
 artifacts of the rest, metrics.json among them.
+
+--viewer PORT serves the live web viewer (viewer/server.py) during the run.
+--dist-coordinator / --dist-procs / --dist-rank start one rank of a
+multi-process run (parallel/distributed.py: NCCL on CUDA, each rank on its
+card, gloo on the CPU); with System.mesh_devices set to the process count
+the mapper's window shards over the ranks. Every rank runs the frame loop
+and the refinement; the primary (rank 0) alone serves the viewer, writes
+the phase ledger, evaluates and writes metrics.json, and the others write
+their run directories under <Results.save_dir>/rank<R>/.
 """
 
 from __future__ import annotations
@@ -78,6 +90,14 @@ def _parser() -> argparse.ArgumentParser:
                          "records complete and rerun the rest")
     ap.add_argument("--no-phase-ckpt", action="store_true",
                     help="write no phase checkpoints (and so no phase.json)")
+    ap.add_argument("--viewer", type=int, default=0, metavar="PORT",
+                    help="serve the live web viewer on this port")
+    ap.add_argument("--dist-coordinator", default=None, metavar="HOST:PORT",
+                    help="rank 0's address in a multi-process run")
+    ap.add_argument("--dist-procs", type=int, default=None,
+                    help="the process count of a multi-process run")
+    ap.add_argument("--dist-rank", type=int, default=None,
+                    help="this process's rank in a multi-process run")
     return ap
 
 
@@ -102,6 +122,12 @@ def main(argv: list[str] | None = None) -> dict:
         ap.error("--config is required (unless --resume-run is given)")
 
     from .data import load_dataset
+    from .parallel.distributed import (
+        initialize_distributed,
+        is_primary,
+        rank_device,
+        sync_hosts,
+    )
     from .slam.system import SLAM
     from .utils import profiling
     from .utils.config import (
@@ -113,7 +139,10 @@ def main(argv: list[str] | None = None) -> dict:
     )
     from .utils.logging import Log
 
-    device = torch.device(args.device)
+    initialize_distributed(args.dist_coordinator, args.dist_procs, args.dist_rank,
+                           device=args.device)
+    device = rank_device(args.device)
+    primary = is_primary()
     if device.type == "cuda":
         # Full float32 in every product and convolution on the card.
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -132,6 +161,9 @@ def main(argv: list[str] | None = None) -> dict:
     if args.resume_run:
         # In place: the saved config.yml names the original save root.
         save_dir = args.resume_run
+    if not primary:
+        save_dir = os.path.join(save_root, f"rank{torch.distributed.get_rank()}",
+                                f"{ds_cfg.get('type', 'x')}_{scene}", stamp)
     os.makedirs(save_dir, exist_ok=True)
     config.setdefault("Results", {})["save_dir"] = save_dir
     scfg.save_dir = save_dir
@@ -147,6 +179,8 @@ def main(argv: list[str] | None = None) -> dict:
                 device=device)
     if args.ckpt_every is not None:
         slam.scfg.ckpt_every = args.ckpt_every
+    if args.viewer and primary:
+        slam.start_viewer(port=args.viewer)
     from .utils.ckpt import load_checkpoint, save_checkpoint
 
     start_frame = 0
@@ -169,7 +203,7 @@ def main(argv: list[str] | None = None) -> dict:
 
     def phase_done(name: str):
         """The state to save_dir/<name> and the ledger to phase.json."""
-        if args.no_phase_ckpt:
+        if args.no_phase_ckpt or not primary:
             return
         save_checkpoint(os.path.join(save_dir, name), slam)
         with open(phase_path + ".tmp", "w") as f:
@@ -204,22 +238,25 @@ def main(argv: list[str] | None = None) -> dict:
             if m > done:
                 slam.refine(iters=m - done)
                 done = m
+            if not primary:
+                continue
             r = slam.eval_rendering(every=5, label=f"refine{m}")
             refine_curve.append({"iters": m, "psnr": float(r["mean_psnr"]),
                                  "ssim": float(r["mean_ssim"])})
             Log(f"refine {m}: PSNR {r['mean_psnr']:.2f} SSIM {r['mean_ssim']:.3f}",
                 tag="Eval")
-        with open(os.path.join(save_dir, "refine_curve.json"), "w") as f:
-            json.dump(refine_curve, f, indent=1)
+        if primary:
+            with open(os.path.join(save_dir, "refine_curve.json"), "w") as f:
+                json.dump(refine_curve, f, indent=1)
 
     eval_res = None
-    if args.eval or config.get("Results", {}).get("eval_rendering", False):
+    if primary and (args.eval or config.get("Results", {}).get("eval_rendering", False)):
         eval_res = slam.eval_rendering(every=5)
         Log(f"PSNR {eval_res['mean_psnr']:.2f} SSIM {eval_res['mean_ssim']:.3f}",
             tag="Eval")
-    if args.ate_align:
+    if args.ate_align and primary:
         Log(f"aligned ATE {slam.eval_ate(label='aligned', align=True):.4f}", tag="Eval")
-    if args.ate_align_scale:
+    if args.ate_align_scale and primary:
         rs = slam.eval_ate(label="aligned_scale", align=True, align_scale=True)
         Log(f"scale-aligned ATE {rs:.4f}", tag="Eval")
 
@@ -247,9 +284,13 @@ def main(argv: list[str] | None = None) -> dict:
     if "refine_overflow_max" in slam.metrics:
         summary["refine_overflow_max"] = slam.metrics["refine_overflow_max"]
     summary["stages"] = profiling.summary()
-    with open(os.path.join(save_dir, "metrics.json"), "w") as f:
-        json.dump(summary, f, indent=1)
+    if primary:
+        with open(os.path.join(save_dir, "metrics.json"), "w") as f:
+            json.dump(summary, f, indent=1)
     slam.wandb.finish()
+    if slam.viewer is not None:
+        slam.viewer.stop()
+    sync_hosts()
     summary["save_dir"] = save_dir
     summary["slam"] = slam
     return summary
@@ -257,3 +298,7 @@ def main(argv: list[str] | None = None) -> dict:
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        # Every rank stops its process group (NCCL's watchdog) before it
+        # exits, so that no rank outlives rank 0's store.
+        torch.distributed.destroy_process_group()

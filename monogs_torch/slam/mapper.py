@@ -8,7 +8,10 @@ densification statistics from the (du, dv) screen-space dummy, steps the
 masked Adam on the Gaussians and the pose Adam on the keyframes, and
 retracts the keyframe poses. `mapping_span` runs the iterations between two
 cadence events as a Python loop with the JAX program's segment structure:
-re-bin every `rebin_every` iterations, on frozen bins in between. The
+re-bin every `rebin_every` iterations, on frozen bins in between; given a
+mesh, each rank runs its share of the window through the sharded iteration
+(parallel/overlap.py), which shares the iteration's steps
+(`_forward_backward`, `_densify_parts`, `_pose_step`). The
 cadence events (densify, opacity resets, visibility, covisibility prune,
 extend) are separate calls that rewrite the static-capacity map with masked
 writes. The refinement (`refine_span`, `refine_chunk`) steps the map alone
@@ -230,18 +233,18 @@ def _pose_update(mu, nu, g, lr, bc1, bc2, eps, opt_mask):
     return mu, nu, torch.where(m, d, torch.zeros_like(d))
 
 
-def _mapping_iter(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
-                  init: bool, bins, gt_tiles):
-    """One mapping iteration over the whole window (init=True: the map
-    initialisation's loss, without exposure and without pose updates).
-    -> (new state, MappingAux, grads) where grads are the raw gradients
-    (params dict, rho, theta, exp_a, exp_b, du, dv) before masking."""
+def _forward_backward(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
+                      init: bool, bins, gt_tiles, n_ranks: int = 1):
+    """The mapping loss over the state's window slots and its gradients.
+    The global map terms (the isotropic loss) count 1 / n_ranks, so that
+    their gradients summed over the ranks of a sharded window are the
+    whole term's. -> (loss, the render's output, the raw gradients (params
+    dict, rho, theta, exp_a, exp_b, du, dv))."""
     gmap, window = state.gmap, state.window
     Wc, C = window.capacity, gmap.capacity
     f: Frame = window.frames
     gt_rgb_t, gt_depth_t, gt_mask_t = gt_tiles
     valid_f = window.valid.to(torch.float32)
-    not_frame0 = (f.frame_idx != 0) & window.valid
     dev = gmap.active.device
 
     params = {k: v.detach().requires_grad_() for k, v in gmap.params.items()}
@@ -267,7 +270,7 @@ def _mapping_iter(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
         dev_s = torch.abs(scales - scales.mean(1, keepdim=True))
         iso = torch.where(gmap.active[:, None], dev_s, torch.zeros_like(dev_s)).sum() / (
             3.0 * torch.clamp_min(gmap.active.sum(), 1))
-        loss = loss + cfg.isotropic_loss_weight * iso
+        loss = loss + cfg.isotropic_loss_weight * iso / n_ranks
     if cfg.exposure_reg > 0.0:
         loss = loss + cfg.exposure_reg * torch.sum((eas * eas + ebs * ebs) * valid_f)
 
@@ -275,58 +278,78 @@ def _mapping_iter(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
     grads = torch.autograd.grad(
         loss, [params[k] for k in keys] + [rhos, thetas, eas, ebs, du, dv],
         allow_unused=True, materialize_grads=True)   # init leaves exposure out
-    g_params = dict(zip(keys, grads[:len(keys)]))
-    g_rho, g_theta, g_ea, g_eb, g_du, g_dv = grads[len(keys):]
-    loss = loss.detach()
+    return loss.detach(), out, (dict(zip(keys, grads[:len(keys)])), *grads[len(keys):])
 
+
+def _densify_parts(out, g_du, g_dv, window: Window, active: torch.Tensor,
+                   intr: Intrinsics):
+    """The densification statistics' terms of the window slots:
+    per-keyframe screen-space gradient norms (NDC units) over the visible
+    active Gaussians. -> (vis_filter, (norm sum, count, max radius) over the
+    slots, each (C,))."""
+    vis_filter = out.radii > 0
+    norms = torch.sqrt((g_du * (intr.width * 0.5)) ** 2 + (g_dv * (intr.height * 0.5)) ** 2)
+    upd = vis_filter & window.valid[:, None] & active[None, :]
+    return vis_filter, (torch.where(upd, norms, torch.zeros_like(norms)).sum(0),
+                        upd.sum(0).to(torch.float32),
+                        torch.where(upd, out.radii, torch.zeros_like(out.radii)).amax(0))
+
+
+def _mask_active(active: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """g with the rows of inactive Gaussians zeroed."""
+    return torch.where(active.reshape(active.shape + (1,) * (g.dim() - 1)), g,
+                       torch.zeros_like(g))
+
+
+def _pose_step(state: MapperState, g_rho, g_theta, g_ea, g_eb, cfg: MapperConfig,
+               init: bool):
+    """The pose Adam on the window's keyframes and the retraction (frame 0
+    and empty slots fixed; nothing at init). -> (window, pose Adam)."""
+    window, pa = state.window, state.pose_adam
+    if init:
+        return window, pa
+    f = window.frames
+    not_frame0 = (f.frame_idx != 0) & window.valid
+    step = pa.step + 1
+    t_f = step.to(torch.float32)
+    bc = (1.0 - 0.9 ** t_f, 1.0 - 0.999 ** t_f, cfg.pose_adam_eps, not_frame0)
+    mu_r, nu_r, d_rho = _pose_update(pa.mu_rho, pa.nu_rho, g_rho, cfg.lr_trans, *bc)
+    mu_t, nu_t, d_theta = _pose_update(pa.mu_theta, pa.nu_theta, g_theta, cfg.lr_rot, *bc)
+    mu_a, nu_a, d_ea = _pose_update(pa.mu_ea, pa.nu_ea, g_ea, cfg.lr_exposure, *bc)
+    mu_b, nu_b, d_eb = _pose_update(pa.mu_eb, pa.nu_eb, g_eb, cfg.lr_exposure, *bc)
+    R_new, t_new = torch.vmap(lie.apply_pose_delta)(f.R, f.t, d_rho, d_theta)
+    return (Window(frames=f._replace(R=R_new, t=t_new, exposure_a=f.exposure_a + d_ea,
+                                     exposure_b=f.exposure_b + d_eb), valid=window.valid),
+            PoseAdam(mu_r, mu_t, mu_a, mu_b, nu_r, nu_t, nu_a, nu_b, step))
+
+
+def _mapping_iter(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
+                  init: bool, bins, gt_tiles):
+    """One mapping iteration over the whole window (init=True: the map
+    initialisation's loss, without exposure and without pose updates).
+    -> (new state, MappingAux, grads) where grads are the raw gradients
+    (params dict, rho, theta, exp_a, exp_b, du, dv) before masking."""
+    gmap, window = state.gmap, state.window
+    loss, out, grads = _forward_backward(state, intr, cfg, init, bins, gt_tiles)
+    g_params, g_rho, g_theta, g_ea, g_eb, g_du, g_dv = grads
     with torch.no_grad():
-        # Densification statistics: per-keyframe screen-space gradient
-        # norms (NDC units) over the visible active Gaussians.
-        vis_filter = out.radii > 0
-        norms = torch.sqrt((g_du * (intr.width * 0.5)) ** 2
-                           + (g_dv * (intr.height * 0.5)) ** 2)
-        upd = vis_filter & window.valid[:, None] & gmap.active[None, :]
-        gmap = gmap._replace(
-            xyz_grad_accum=gmap.xyz_grad_accum
-            + torch.where(upd, norms, torch.zeros_like(norms)).sum(0),
-            denom=gmap.denom + upd.sum(0).to(torch.float32),
-            max_radii2d=torch.maximum(
-                gmap.max_radii2d,
-                torch.where(upd, out.radii, torch.zeros_like(out.radii)).amax(0)),
-        )
-
-        act = gmap.active
-        masked = {k: torch.where(act.reshape((C,) + (1,) * (g.dim() - 1)), g,
-                                 torch.zeros_like(g)) for k, g in g_params.items()}
+        vis_filter, (acc, den, radii) = _densify_parts(out, g_du, g_dv, window,
+                                                       gmap.active, intr)
+        gmap = gmap._replace(xyz_grad_accum=gmap.xyz_grad_accum + acc,
+                             denom=gmap.denom + den,
+                             max_radii2d=torch.maximum(gmap.max_radii2d, radii))
+        masked = {k: _mask_active(gmap.active, g) for k, g in g_params.items()}
         new_params, new_adam = adam_step(gmap.params, masked, state.adam,
                                          cfg.map_lrs(state.nr_iters))
         gmap = gmap._replace(params=new_params)
-
-        pa = state.pose_adam
-        if init:
-            new_window, pa_new = window, pa
-        else:
-            step = pa.step + 1
-            t_f = step.to(torch.float32)
-            bc = (1.0 - 0.9 ** t_f, 1.0 - 0.999 ** t_f, cfg.pose_adam_eps,
-                  not_frame0)
-            mu_r, nu_r, d_rho = _pose_update(pa.mu_rho, pa.nu_rho, g_rho, cfg.lr_trans, *bc)
-            mu_t, nu_t, d_theta = _pose_update(pa.mu_theta, pa.nu_theta, g_theta,
-                                               cfg.lr_rot, *bc)
-            mu_a, nu_a, d_ea = _pose_update(pa.mu_ea, pa.nu_ea, g_ea, cfg.lr_exposure, *bc)
-            mu_b, nu_b, d_eb = _pose_update(pa.mu_eb, pa.nu_eb, g_eb, cfg.lr_exposure, *bc)
-            pa_new = PoseAdam(mu_r, mu_t, mu_a, mu_b, nu_r, nu_t, nu_a, nu_b, step)
-            R_new, t_new = torch.vmap(lie.apply_pose_delta)(f.R, f.t, d_rho, d_theta)
-            new_window = Window(frames=f._replace(
-                R=R_new, t=t_new, exposure_a=f.exposure_a + d_ea,
-                exposure_b=f.exposure_b + d_eb), valid=window.valid)
+        new_window, pa_new = _pose_step(state, g_rho, g_theta, g_ea, g_eb, cfg, init)
 
     new_state = MapperState(gmap=gmap, adam=new_adam, window=new_window,
                             pose_adam=pa_new, nr_iters=state.nr_iters + 1,
                             rng=state.rng)
     aux = MappingAux(loss=loss, vis_filter=vis_filter & window.valid[:, None],
                      overflow=out.overflow, overflow_parts=out.overflow_parts)
-    return new_state, aux, (g_params, g_rho, g_theta, g_ea, g_eb, g_du, g_dv)
+    return new_state, aux, grads
 
 
 def mapping_step(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
@@ -348,7 +371,7 @@ def _zero_aux(Wc: int, C: int, device) -> MappingAux:
 
 
 def mapping_span(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
-                 init: bool, n_segments: int, tail_len: int):
+                 init: bool, n_segments: int, tail_len: int, mesh=None):
     """n_segments * rebin_every + tail_len mapping iterations, re-binning at
     the start of every segment (the tail segment always re-bins once;
     callers keep tail_len in [1, rebin_every]).
@@ -357,7 +380,20 @@ def mapping_span(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
     counts): stop once the window loss's relative improvement stays below
     converged_eps for converged_patience consecutive iterations; the stall
     counter carries across segments. -> (state, aux of the last iteration
-    run, or zeros when none ran)."""
+    run, or zeros when none ran).
+
+    With a `mesh` (parallel/mesh.py) the span runs on this rank's share of
+    the window and the Adam rows (`parallel/overlap.sharded_mapping_iter`),
+    and the whole state is gathered back at its end."""
+    whole = state
+    step = _mapping_iter
+    if mesh is not None:
+        from ..parallel import mesh as pmesh
+        from ..parallel.overlap import sharded_mapping_iter
+
+        state = pmesh.shard_mapper_state(state, mesh)
+        step = functools.partial(sharded_mapping_iter, mesh=mesh,
+                                 rows=pmesh.zero_rows(mesh, state.gmap.capacity))
     gt_tiles = _tile_window_gt(state.window, intr, cfg)
     dev = state.gmap.active.device
     aux = _zero_aux(state.window.capacity, state.gmap.capacity, dev)
@@ -370,7 +406,7 @@ def mapping_span(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
             break
         bins = window_bins(state, intr, cfg)
         for _ in range(m):
-            state, aux, _ = _mapping_iter(state, intr, cfg, init, bins, gt_tiles)
+            state, aux, _ = step(state, intr, cfg, init, bins, gt_tiles)
             if eps > 0.0:
                 rel = (prev - aux.loss) / torch.clamp_min(prev.abs(), 1e-12)
                 stall = torch.where(rel < eps, stall + 1, torch.zeros_like(stall))
@@ -379,6 +415,8 @@ def mapping_span(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
                 stalled = int(stall) >= cfg.converged_patience
                 if stalled:
                     break
+    if mesh is not None:
+        state, aux = pmesh.unshard_mapper_state(state, aux, mesh, like=whole)
     return state, aux
 
 
@@ -616,10 +654,12 @@ def _log_overflow(parts) -> None:
                     overflow, g, d, t, s)
 
 
-def run_initialize_map(state: MapperState, intr: Intrinsics, cfg: MapperConfig):
+def run_initialize_map(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
+                       mesh=None):
     """The map initialisation: init_itr_num iterations on the init keyframe
     with densify every init_gaussian_update and an opacity reset at
-    init_gaussian_reset. -> (state, visibility (Wc, C))."""
+    init_gaussian_reset (sharded over `mesh`'s ranks when given).
+    -> (state, visibility (Wc, C))."""
     cur = int(state.nr_iters)
     end = cur + cfg.init_itr_num
     while cur < end:
@@ -627,7 +667,7 @@ def run_initialize_map(state: MapperState, intr: Intrinsics, cfg: MapperConfig):
                    cfg.init_gaussian_reset if cfg.init_gaussian_reset > cur else 1 << 30,
                    end)
         state, _ = mapping_span(state, intr, cfg, True,
-                                *_span_args(stop - cur, cfg.rebin_every))
+                                *_span_args(stop - cur, cfg.rebin_every), mesh=mesh)
         cur = stop
         if cfg.converged_eps > 0.0:
             # An early exit ran fewer iterations than the schedule: pin the
@@ -641,10 +681,11 @@ def run_initialize_map(state: MapperState, intr: Intrinsics, cfg: MapperConfig):
 
 
 def run_optimize_map(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
-                     iters: int, defer_overflow_read: bool = True):
+                     iters: int, defer_overflow_read: bool = True, mesh=None):
     """The per-keyframe mapping loop: `iters` iterations in spans between
     the cadence events (densify at gaussian_update_every / offset, the
-    non-visible opacity reset at gaussian_reset). -> (state, visibility).
+    non-visible opacity reset at gaussian_reset), sharded over `mesh`'s
+    ranks when given. -> (state, visibility).
 
     Overflow telemetry, read to log each span over the limit: deferred
     (the synchronous mode, where the mapper owns the device), every span's
@@ -659,7 +700,7 @@ def run_optimize_map(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
         stop = min(_next_event(cur, [(cfg.gaussian_update_every, cfg.gaussian_update_offset),
                                      (cfg.gaussian_reset, 0)]), end)
         state, aux = mapping_span(state, intr, cfg, False,
-                                  *_span_args(stop - cur, cfg.rebin_every))
+                                  *_span_args(stop - cur, cfg.rebin_every), mesh=mesh)
         cur = it = stop
         if cfg.converged_eps > 0.0:
             state = state._replace(nr_iters=torch.full_like(state.nr_iters, cur))

@@ -21,10 +21,17 @@ tracked frame (the tracker's convergence exit reads one bool per
 iteration besides), one read of `window_host_pack` per keyframe, and in
 `refine` one overflow read every 200 iterations and one at the end.
 
-Not carried over from the JAX package: the viewer and the multi-device
-paths (ROADMAP Queue 1), and the background compiles of `prewarm` and the
-demand re-probes (eager PyTorch has no compile step: a re-probe adopts a
-larger entry capacity at once, and `prewarm` builds the CUDA kernels).
+`start_viewer` serves the live web viewer (viewer/server.py), which the
+frame loops feed a packet every tracked frame and which pauses them. With
+SystemConfig.mesh_devices the mapper's window shards over the ranks of a
+process group (parallel/): every rank runs this frame loop on the
+same stream, and the mapping spans run sharded, the rest replicated.
+
+Not carried over from the JAX package: the background compiles of
+`prewarm` and the demand re-probes (eager PyTorch has no compile step: a
+re-probe adopts a larger entry capacity at once, and `prewarm` builds the
+CUDA kernels), and `_place_state` (the state stays whole between mapping
+spans; each span takes its rank's share and gathers it back).
 """
 
 from __future__ import annotations
@@ -173,6 +180,12 @@ class SLAM:
         self.wandb = WandbLogger(enabled=self.scfg.use_wandb, config=config)
         self._prefetcher = (_FramePrefetcher(self._load_frame_impl)
                             if self.scfg.prefetch else None)
+        self.viewer = None
+        self.mesh = None
+        if self.scfg.mesh_devices:
+            from ..parallel.mesh import make_mesh
+
+            self.mesh = make_mesh(self.scfg.mesh_devices, self.device)
 
     # -- the state and the CUDA streams ----------------------------------------
     #
@@ -222,10 +235,43 @@ class SLAM:
         return st
 
     def _window_capacity(self) -> int:
-        # Exactly window_size: add_to_window evicts down to it before the
+        # Exactly window_size (add_to_window evicts down to it before the
         # mapper sees the list, and a padding slot costs a render each
-        # mapping iteration.
-        return self.kcfg.window_size
+        # mapping iteration), rounded up to a multiple of the mesh's ranks.
+        n = self.mesh.size if self.mesh is not None else 1
+        return -(-self.kcfg.window_size // n) * n
+
+    # -- the web viewer ----------------------------------------------------------
+
+    def start_viewer(self, port: int = 8890):
+        """Start the in-process web viewer (the reference's GUI process,
+        slam.py:120-121); port 0 binds a free port (`viewer.port`)."""
+        from ..viewer.server import ViewerServer, make_render_fn
+
+        self.viewer = ViewerServer(make_render_fn(self), port=port,
+                                   save_dir=self.scfg.save_dir).start()
+        Log(f"Viewer at http://localhost:{self.viewer.port}", tag="System")
+        return self.viewer
+
+    def _push_viewer(self, idx: int, frame: Frame):
+        """The GUI pause (slam_tracker.py:335-348: the frame loop waits while
+        the viewer is paused), then frame idx's packet: references to the
+        state's map and the frame's images, with an event after their
+        writes on this thread's stream."""
+        if self.viewer is None:
+            return
+        from ..viewer.packets import MainToViewerPacket
+
+        while self.viewer.paused:
+            time.sleep(0.05)
+        st = self.read_state().gmap
+        self.viewer.push(MainToViewerPacket(
+            params=st.params, active=st.active, kf_idx=st.kf_idx, obj_prob=st.obj_prob,
+            intrinsics=self.intr, cur_frame_idx=idx, cur_pose=self.est_poses[idx],
+            gt_pose=self.gt_poses.get(idx),
+            kf_poses={i: self.est_poses[i] for i in self.kf_list},
+            gt_rgb=frame.rgb, gt_depth=frame.depth, gt_segmentation=frame.segmentation,
+            ready=self._event()))
 
     def prewarm(self):
         """Build the CUDA kernels and compile the Triton relayout before
@@ -408,7 +454,8 @@ class SLAM:
                                                 self.mcfg, init=True)
         Log(f"Map init: {int(n_added)} Gaussians", tag="Mapper")
         self._derive_entry_capacities(frame)
-        self.state, vis = run_initialize_map(self.state, self.intr, self.mcfg)
+        self.state, vis = run_initialize_map(self.state, self.intr, self.mcfg,
+                                             mesh=self.mesh)
         self.frames[0] = frame
         self.kf_list = [0]
         self._window_slots = [0]
@@ -501,7 +548,8 @@ class SLAM:
         with self._section("kf.optimize"):
             self.state, vis = run_optimize_map(self.state, self.intr, self.mcfg,
                                                self.mcfg.iters_per_kf,
-                                               defer_overflow_read=self._defer_overflow_read)
+                                               defer_overflow_read=self._defer_overflow_read,
+                                               mesh=self.mesh)
         if len(kf_list) == self.kcfg.window_size:
             # The first full window may prune from any keyframe; later ones
             # only Gaussians of the three newest keyframes.
@@ -567,6 +615,7 @@ class SLAM:
         frame, res = self.track(idx, frame)
         self.frames[idx] = frame
         create_kf = self._is_keyframe(idx, frame, res)
+        self._push_viewer(idx, frame)
         if create_kf:
             self._add_keyframe(idx, res)
             self.handle_keyframe(idx, frame)
@@ -776,7 +825,11 @@ class SLAM:
         it between frames. The first SystemConfig.async_bootstrap_kfs
         keyframe events, and every event after which a checkpoint is due,
         are waited for at once (a checkpoint is then of a state with no
-        event in flight).
+        event in flight). With a mesh every event is waited for at once:
+        the ranks' trackers must read the same states, and a state that a
+        mapper thread swaps in mid-frame is read at no fixed frame; the
+        mapper's collectives (its thread's and its backward's) then run
+        in one order on every rank.
 
         Streams: on a card the mapper thread runs on a CUDA stream of its
         own for its whole life, the tracker (and the frame prefetcher) on
@@ -874,11 +927,13 @@ class SLAM:
                 frame, res = self.track(idx, frame)
                 tracked += 1
                 self.frames[idx] = frame
-                if self._is_keyframe(idx, frame, res):
+                create_kf = self._is_keyframe(idx, frame, res)
+                self._push_viewer(idx, frame)
+                if create_kf:
                     self._add_keyframe(idx, res)
                     pending[idx] = tracked
                     send((idx, frame, list(self.kf_list), self._event()))
-                    if bootstrap_left > 0 or self._checkpoint_due():
+                    if bootstrap_left > 0 or self._checkpoint_due() or self.mesh is not None:
                         bootstrap_left = max(bootstrap_left - 1, 0)
                         drain(block=True)
                     self._maybe_checkpoint()

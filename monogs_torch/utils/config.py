@@ -184,8 +184,7 @@ def build_keyframe_config(cfg: dict):
 
 @dataclasses.dataclass
 class SystemConfig:
-    """Top-level run options. The JAX package's multi-device field waits
-    with that path (ROADMAP Queue 1 item 14)."""
+    """Top-level run options."""
 
     map_capacity: int = 1 << 17
     capacity_headroom: int = 8192   # grow when free slots drop below this
@@ -205,6 +204,9 @@ class SystemConfig:
     # does not run against the stale snapshot of a young map. 0 = off, as
     # the reference overlaps from frame 0.
     async_bootstrap_kfs: int = 0
+    # Ranks of the window mesh (parallel/mesh.py): the mapper's keyframe
+    # window shards over a process group of this size; 0 = unsharded.
+    mesh_devices: int = 0
 
 
 def build_system_config(cfg: dict) -> SystemConfig:
@@ -224,4 +226,5 @@ def build_system_config(cfg: dict) -> SystemConfig:
                         d=g("Training", "single_thread", d=True)),
         ckpt_every=g("System", "ckpt_every", d=0),
         async_bootstrap_kfs=g("System", "async_bootstrap_kfs", d=0),
+        mesh_devices=g("System", "mesh_devices", d=0),
     )

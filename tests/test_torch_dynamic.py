@@ -2,9 +2,8 @@
 tests/test_dynamic.py:85 and :116): the synthetic dataset's moving object
 in rgb and segmentation, moving across frames, and out of the loss mask
 when masked; and, unmasked, its pixels seeding Gaussians whose obj_prob
-carries the object's channel after 4 frames. The second half of :116, the
-viewer's segmentation shader, waits for the viewer's port (ROADMAP Queue 1
-item 13b). The masked run against the static one (:100) is
+carries the object's channel after 4 frames, which the viewer's
+segmentation shader renders. The masked run against the static one (:100) is
 tests/test_torch_dynamic_masked.py: each SLAM run has a worker of its own.
 """
 
@@ -70,3 +69,14 @@ def test_unmasked_dynamic_object_populates_obj_prob():
     # One-hots: every active Gaussian carries exactly one object.
     act = gmap.obj_prob[gmap.active]
     assert torch.equal(act.sum(1), torch.ones(act.shape[0]))
+
+    # The viewer's segmentation shader renders from them.
+    from monogs_torch.viewer.server import make_render_fn
+
+    render_fn = make_render_fn(slam)
+    R, t = slam.est_poses[3]
+    img, _ = render_fn(R, t, shader="segmentation")
+    assert np.isfinite(img).all() and img.shape[-1] == 3
+    rgb_img, _ = render_fn(R, t, shader="rgb")
+    assert not np.allclose(img, rgb_img), \
+        "segmentation shader identical to rgb: obj_prob not reaching it"
