@@ -59,7 +59,7 @@ Phases, one line each; any failure propagates and exits non-zero:
      room, the config's budgets) for 16 frames with --eval and the
      synthetic cache off: fps and wall time beside the host CPU, ATE, PSNR
      and SSIM, active Gaussians and keyframes, tracking iterations, the
-     profiling sections per tracked frame and per keyframe, the host reads
+     profiling spans per tracked frame and per keyframe, the host reads
      per stage (under torch.cuda.set_sync_debug_mode), each kernel's
      launches (those of the ground-truth renders apart), the PLY against
      the map. It fails on a non-finite pose, ATE >= 0.05 m, PSNR <= 15 dB,
@@ -786,10 +786,10 @@ def drive_cli(argv: list) -> tuple[dict, dict]:
     kernels), and counted: the plain twins' and the dense oracle's calls
     (a CPU tensor or the "ref" backend on the path), the ground-truth
     renders and their slab_fwd launches, the host reads per stage (under
-    torch.cuda.set_sync_debug_mode; a profiling section's own wait is not
-    a read), and inside `SLAM.refine` alone: its synced wall time, the
-    kernels' launches, the `tile_bin` calls and the host reads, beside a
-    copy of the map's geometry leaves taken when it starts.
+    torch.cuda.set_sync_debug_mode), and inside `SLAM.refine` alone: its
+    synced wall time, the kernels' launches, the `tile_bin` calls and the
+    host reads, beside a copy of the map's geometry leaves taken when it
+    starts.
     -> (main's summary, counts)."""
     import threading
     import traceback
@@ -875,8 +875,6 @@ def drive_cli(argv: list) -> tuple[dict, dict]:
         if sync_warn not in str(message):
             return
         stack = traceback.extract_stack()
-        if any(fr.filename.endswith(os.path.join("utils", "profiling.py")) for fr in stack):
-            return     # a profiling section's own wait, not a read of the path
         stage = "other"
         for fr in reversed(stack):
             if fr.filename.endswith(os.path.join("slam", "system.py")) and fr.name in READ_STAGE:

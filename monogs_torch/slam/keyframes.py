@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.profiling import host_read
+
 
 @dataclasses.dataclass(frozen=True)
 class KeyframeConfig:
@@ -43,11 +45,9 @@ def _pad_to(vis: torch.Tensor, n: int) -> torch.Tensor:
 def _overlap_stats(cur: torch.Tensor, stack: torch.Tensor) -> np.ndarray:
     """[intersections (n,), member counts (n,), |cur| (1,)] of cur (C,)
     against each row of stack (n, C), in one host read."""
-    return torch.cat([
-        (stack & cur[None, :]).sum(1),
-        stack.sum(1),
-        cur.sum()[None],
-    ]).cpu().numpy()
+    stats = torch.cat([(stack & cur[None, :]).sum(1), stack.sum(1), cur.sum()[None]])
+    with host_read():
+        return stats.cpu().numpy()
 
 
 def overlap_ratio_union(vis_a, vis_b) -> float:

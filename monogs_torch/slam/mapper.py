@@ -21,7 +21,10 @@ Host syncs. The JAX span is one device program. Here, with
 `converged_eps <= 0` a span makes no host read at all; with
 `converged_eps > 0` it reads the stall counter once per iteration (the
 early exit's only sync), computing the relative improvement on the device
-in float32 as the JAX loop does, so the trip counts agree.
+in float32 as the JAX loop does, so the trip counts agree. Every read is
+wrapped in `profiling.host_read`. A span is a `map.span` span, a densify
+event `map.densify`, a visibility pass `map.visibility`; while a torch
+profiler records, each mapping iteration is a `map.iter` span.
 
 The functions return new states and leave their inputs as they were, as
 the JAX package's pure functions do; `MapperState.rng` is a
@@ -52,6 +55,7 @@ from ..ops.render import (
     render_window,
     tile_image,
 )
+from ..utils.profiling import fine_span, host_read, span
 from .camera import Frame, Window
 
 log = logging.getLogger(__name__)
@@ -385,39 +389,41 @@ def mapping_span(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
     With a `mesh` (parallel/mesh.py) the span runs on this rank's share of
     the window and the Adam rows (`parallel/overlap.sharded_mapping_iter`),
     and the whole state is gathered back at its end."""
-    whole = state
-    step = _mapping_iter
-    if mesh is not None:
-        from ..parallel import mesh as pmesh
-        from ..parallel.overlap import sharded_mapping_iter
+    with span("map.span", device=state.gmap.active.device):
+        whole = state
+        step = _mapping_iter
+        if mesh is not None:
+            from ..parallel import mesh as pmesh
+            from ..parallel.overlap import sharded_mapping_iter
 
-        state = pmesh.shard_mapper_state(state, mesh)
-        step = functools.partial(sharded_mapping_iter, mesh=mesh,
-                                 rows=pmesh.zero_rows(mesh, state.gmap.capacity))
-    gt_tiles = _tile_window_gt(state.window, intr, cfg)
-    dev = state.gmap.active.device
-    aux = _zero_aux(state.window.capacity, state.gmap.capacity, dev)
-    eps = float(cfg.converged_eps)
-    prev = torch.full((), float("inf"), device=dev)
-    stall = torch.zeros((), dtype=torch.int32, device=dev)
-    stalled = False
-    for m in [cfg.rebin_every] * n_segments + [tail_len]:
-        if stalled:
-            break
-        bins = window_bins(state, intr, cfg)
-        for _ in range(m):
-            state, aux, _ = step(state, intr, cfg, init, bins, gt_tiles)
-            if eps > 0.0:
-                rel = (prev - aux.loss) / torch.clamp_min(prev.abs(), 1e-12)
-                stall = torch.where(rel < eps, stall + 1, torch.zeros_like(stall))
-                prev = aux.loss
-                # The early exit's one host read per iteration.
-                stalled = int(stall) >= cfg.converged_patience
-                if stalled:
-                    break
-    if mesh is not None:
-        state, aux = pmesh.unshard_mapper_state(state, aux, mesh, like=whole)
-    return state, aux
+            state = pmesh.shard_mapper_state(state, mesh)
+            step = functools.partial(sharded_mapping_iter, mesh=mesh,
+                                     rows=pmesh.zero_rows(mesh, state.gmap.capacity))
+        gt_tiles = _tile_window_gt(state.window, intr, cfg)
+        dev = state.gmap.active.device
+        aux = _zero_aux(state.window.capacity, state.gmap.capacity, dev)
+        eps = float(cfg.converged_eps)
+        prev = torch.full((), float("inf"), device=dev)
+        stall = torch.zeros((), dtype=torch.int32, device=dev)
+        stalled = False
+        for m in [cfg.rebin_every] * n_segments + [tail_len]:
+            if stalled:
+                break
+            bins = window_bins(state, intr, cfg)
+            for _ in range(m):
+                with fine_span("map.iter"):
+                    state, aux, _ = step(state, intr, cfg, init, bins, gt_tiles)
+                if eps > 0.0:
+                    rel = (prev - aux.loss) / torch.clamp_min(prev.abs(), 1e-12)
+                    stall = torch.where(rel < eps, stall + 1, torch.zeros_like(stall))
+                    prev = aux.loss
+                    with host_read():    # the early exit's one read per iteration
+                        stalled = int(stall) >= cfg.converged_patience
+                    if stalled:
+                        break
+        if mesh is not None:
+            state, aux = pmesh.unshard_mapper_state(state, aux, mesh, like=whole)
+        return state, aux
 
 
 def window_host_pack(state: MapperState) -> torch.Tensor:
@@ -431,7 +437,8 @@ def window_host_pack(state: MapperState) -> torch.Tensor:
 def unpack_window_host(pack: torch.Tensor, Wc: int) -> dict:
     """Decode window_host_pack with one host read -> numpy arrays R (Wc, 3,
     3), t (Wc, 3), exposure_a (Wc,), exposure_b (Wc,)."""
-    s = pack.detach().cpu().numpy()
+    with host_read():
+        s = pack.detach().cpu().numpy()
     return {
         "R": s[: Wc * 9].reshape(Wc, 3, 3),
         "t": s[Wc * 9: Wc * 12].reshape(Wc, 3),
@@ -454,11 +461,12 @@ def densify_event(state: MapperState, cfg: MapperConfig, init_phase: bool,
         th, extent, max_screen = cfg.init_gaussian_th, cfg.init_gaussian_extent, None
     else:
         th, extent, max_screen = cfg.gaussian_th, cfg.gaussian_extent, cfg.size_threshold
-    gmap, adam, *counts = gm.densify_and_prune(
-        state.gmap, state.adam, state.rng, max_grad=cfg.densify_grad_threshold,
-        min_opacity=th, extent=extent, max_screen_size=max_screen,
-        percent_dense=cfg.percent_dense, isotropic=cfg.isotropic,
-        split_noise=split_noise)
+    with span("map.densify", device=state.gmap.active.device):
+        gmap, adam, *counts = gm.densify_and_prune(
+            state.gmap, state.adam, state.rng, max_grad=cfg.densify_grad_threshold,
+            min_opacity=th, extent=extent, max_screen_size=max_screen,
+            percent_dense=cfg.percent_dense, isotropic=cfg.isotropic,
+            split_noise=split_noise)
     return state._replace(gmap=gmap, adam=adam), tuple(counts)
 
 
@@ -478,13 +486,14 @@ def visibility_pass(state: MapperState, intr: Intrinsics,
     """No-grad window render for visibility only: (Wc, C) bool n_touched > 0
     on valid slots."""
     gmap, f = state.gmap, state.window.frames
-    z = torch.zeros_like(f.t)
-    out = render_window(
-        gmap.params["xyz"], gm.get_scales(gmap.params, cfg.isotropic),
-        gmap.params["quats"], gm.get_opacity(gmap.params), gmap.params["rgb"],
-        f.R, f.t, intr, rhos=z, thetas=z, active=gmap.active,
-        tile_size=cfg.tile_size, backend=cfg.backend, **_render_caps(cfg))
-    return (out.n_touched > 0) & state.window.valid[:, None]
+    with span("map.visibility", device=gmap.active.device):
+        z = torch.zeros_like(f.t)
+        out = render_window(
+            gmap.params["xyz"], gm.get_scales(gmap.params, cfg.isotropic),
+            gmap.params["quats"], gm.get_opacity(gmap.params), gmap.params["rgb"],
+            f.R, f.t, intr, rhos=z, thetas=z, active=gmap.active,
+            tile_size=cfg.tile_size, backend=cfg.backend, **_render_caps(cfg))
+        return (out.n_touched > 0) & state.window.valid[:, None]
 
 
 def covisibility_prune(state: MapperState, visibility: torch.Tensor,
@@ -660,7 +669,8 @@ def run_initialize_map(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
     with densify every init_gaussian_update and an opacity reset at
     init_gaussian_reset (sharded over `mesh`'s ranks when given).
     -> (state, visibility (Wc, C))."""
-    cur = int(state.nr_iters)
+    with host_read():
+        cur = int(state.nr_iters)
     end = cur + cfg.init_itr_num
     while cur < end:
         stop = min(_next_event(cur, [(cfg.init_gaussian_update, 1)]),
@@ -693,7 +703,8 @@ def run_optimize_map(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
     them; not deferred (the concurrent mode), one read per span, so the
     mapper's thread never runs more than a span ahead of the device and
     the tracker's work is not queued behind a whole event."""
-    cur = int(state.nr_iters)
+    with host_read():
+        cur = int(state.nr_iters)
     end = cur + iters
     span_ovs = []
     while cur < end:
@@ -708,13 +719,17 @@ def run_optimize_map(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
         if defer_overflow_read:
             span_ovs.append(parts)
         else:
-            _log_overflow(parts.cpu())                 # one read for the span
+            with host_read():                          # one read for the span
+                parts = parts.cpu()
+            _log_overflow(parts)
         if it % cfg.gaussian_update_every == cfg.gaussian_update_offset:
             state, _ = densify_event(state, cfg, init_phase=False)
         elif it % cfg.gaussian_reset == 0:
             state = reset_nonvisible_event(state, aux.vis_filter.any(0))
     vis = visibility_pass(state, intr, cfg)
     if span_ovs:
-        for parts in torch.stack(span_ovs).cpu():     # one read for the event
+        with host_read():                              # one read for the event
+            ovs = torch.stack(span_ovs).cpu()
+        for parts in ovs:
             _log_overflow(parts)
     return state, vis

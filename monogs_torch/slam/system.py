@@ -20,6 +20,11 @@ Host reads, as in the JAX package: one (22,) `host_stats` read per
 tracked frame (the tracker's convergence exit reads one bool per
 iteration besides), one read of `window_host_pack` per keyframe, and in
 `refine` one overflow read every 200 iterations and one at the end.
+Each read is wrapped in `profiling.host_read`, and the stages are spans
+(utils/profiling.py), none of which waits for the device: `frame` around
+each frame, in it `frame.load`, `init`, `track.dispatch`,
+`track.readback` and the keyframe event's `kf.*`, whose frame id is the
+keyframe's also in run_async's mapper thread.
 
 `start_viewer` serves the live web viewer (viewer/server.py), which the
 frame loops feed a packet every tracked frame and which pauses them. With
@@ -62,7 +67,7 @@ from ..utils.config import (
 from ..utils.eval import eval_rendering, eval_traj_ate
 from ..utils.logging import Log, WandbLogger
 from ..utils.ply import save_ply
-from ..utils.profiling import section
+from ..utils.profiling import host_read, span
 from . import keyframes as kf
 from .camera import Frame, make_frame, window_from_list, window_update
 from .mapper import (
@@ -283,11 +288,6 @@ class SLAM:
             kernels.build_all()
             kernels.rows_to_channels(torch.zeros((1, 512, 16), device=self.device))
 
-    def _section(self, name: str):
-        """A profiling section that waits for the SLAM device at its end, so
-        each section's time holds the device work it dispatched."""
-        return section(name, sync=True, device=self.device)
-
     # -- frame plumbing ------------------------------------------------------
 
     def _load_frame(self, idx: int) -> Frame:
@@ -329,7 +329,7 @@ class SLAM:
         """The whole state to <save_dir>/ckpt every ckpt_every keyframes."""
         if self._checkpoint_due():
             path = os.path.join(self.scfg.save_dir, "ckpt")
-            with self._section("ckpt.save"):
+            with span("ckpt.save", device=self.device):
                 save_checkpoint(path, self)
             Log(f"checkpoint -> {path}", tag="System")
 
@@ -355,7 +355,8 @@ class SLAM:
             img_h=self.intr.height, tile_size=cfg.tile_size,
             tile_capacity=cfg.tile_capacity, max_dup=cfg.max_dup,
             max_dup_gen=cfg.max_dup_gen)
-        padded, entries = torch.stack([padded, entries]).tolist()
+        with host_read():
+            padded, entries = torch.stack([padded, entries]).tolist()
         return padded, entries
 
     def _derive_entry_capacities(self, frame: Frame):
@@ -435,7 +436,8 @@ class SLAM:
 
     def _maybe_grow(self):
         st = self.state
-        free = st.gmap.capacity - int(st.gmap.num_active)
+        with host_read():
+            free = st.gmap.capacity - int(st.gmap.num_active)
         if free < self.scfg.capacity_headroom:
             new_cap = st.gmap.capacity * 2
             Log(f"Growing map capacity -> {new_cap}", tag="System")
@@ -452,7 +454,9 @@ class SLAM:
                                        seed=self.scfg.seed)
         self.state, (n_added, _) = extend_event(self.state, frame, 0, self.intr,
                                                 self.mcfg, init=True)
-        Log(f"Map init: {int(n_added)} Gaussians", tag="Mapper")
+        with host_read():
+            n_added = int(n_added)
+        Log(f"Map init: {n_added} Gaussians", tag="Mapper")
         self._derive_entry_capacities(frame)
         self.state, vis = run_initialize_map(self.state, self.intr, self.mcfg,
                                              mesh=self.mesh)
@@ -461,7 +465,8 @@ class SLAM:
         self._window_slots = [0]
         self.kf_history.add(0)
         self.vis_dict[0] = vis[0]
-        pose = torch.cat([frame.R.reshape(-1), frame.t]).cpu().numpy()
+        with host_read():
+            pose = torch.cat([frame.R.reshape(-1), frame.t]).cpu().numpy()
         self._record_pose(0, pose[:9].reshape(3, 3), pose[9:])
         self._raw_poses[0] = self.est_poses[0]
         self.exposures[0] = (frame.exposure_a, frame.exposure_b)
@@ -479,12 +484,12 @@ class SLAM:
         frame = frame._replace(R=torch.as_tensor(init_R, dtype=f32, device=self.device),
                                t=torch.as_tensor(init_t, dtype=f32, device=self.device))
         gmap = self.read_state().gmap
-        with self._section("track.dispatch"):
+        with span("track.dispatch", device=self.device):
             res = track_frame(gmap.params, gmap.active, frame, self.intr, self.tcfg)
         frame = frame._replace(R=res.R, t=res.t, exposure_a=res.exposure_a,
                                exposure_b=res.exposure_b)
         # One host read for all of the frame's bookkeeping.
-        with self._section("track.readback"):
+        with span("track.readback", device=self.device):
             hs = unpack_host_stats(res.host_stats)
         self._record_pose(idx, hs["R"], hs["t"])
         self._raw_poses[idx] = self.est_poses[idx]
@@ -517,7 +522,7 @@ class SLAM:
         when the window slots are unknown. -> (window_host_pack, vis)."""
         self._maybe_grow()  # before seeding, so no candidates are dropped
         self._reprobe_mapping(frame)
-        with self._section("kf.extend"):
+        with span("kf.extend", frame=idx, device=self.device):
             self.state, (_, n_dropped) = extend_event(self.state, frame, idx, self.intr,
                                                       self.mcfg, init=False)
             # Read at the end of the run (metrics["seed_drops"]), not here:
@@ -526,7 +531,7 @@ class SLAM:
 
         # The window, newest first as kf_list, by permutation of the
         # previous window on the device plus the new frame.
-        with self._section("kf.window_build"):
+        with span("kf.window_build", frame=idx, device=self.device):
             cap = self._window_capacity()
             slots = self._window_slots
             pos = {k: s for s, k in enumerate(slots)} if slots is not None else None
@@ -545,7 +550,7 @@ class SLAM:
                 window=window, pose_adam=init_pose_adam(cap, self.device))
             self._window_slots = list(kf_list)
 
-        with self._section("kf.optimize"):
+        with span("kf.optimize", frame=idx, device=self.device):
             self.state, vis = run_optimize_map(self.state, self.intr, self.mcfg,
                                                self.mcfg.iters_per_kf,
                                                defer_overflow_read=self._defer_overflow_read,
@@ -558,7 +563,7 @@ class SLAM:
                 self.first_time_pruned = True
             else:
                 floor = sorted(kf_list, reverse=True)[2]
-            with self._section("kf.prune"):
+            with span("kf.prune", frame=idx, device=self.device):
                 self.state, _ = covisibility_prune(self.state, vis, floor, self.mcfg)
                 vis = visibility_pass(self.state, self.intr, self.mcfg)
         return window_host_pack(self.state), vis
@@ -566,7 +571,7 @@ class SLAM:
     def _apply_mapper_result(self, kf_list: list, host_pack, vis):
         """Write the optimised window poses, exposures and visibility back
         into the host bookkeeping; one host read of host_pack."""
-        with self._section("kf.apply_result"):
+        with span("kf.apply_result", device=self.device):
             w = unpack_window_host(host_pack, self._window_capacity())
             for slot, i in enumerate(kf_list):
                 self._record_pose(i, w["R"][slot], w["t"][slot])
@@ -584,7 +589,8 @@ class SLAM:
         for row, i in zip(host, idxs):
             R, t = self.est_poses[i]
             row[:9], row[9:12] = np.asarray(R).ravel(), t
-            row[12:] = [float(e) for e in self.exposures.get(i, (0.0, 0.0))]
+            with host_read():
+                row[12:] = [float(e) for e in self.exposures.get(i, (0.0, 0.0))]
         est = torch.as_tensor(host, device=self.device)
         return [f._replace(R=e[:9].reshape(3, 3), t=e[9:12], exposure_a=e[12],
                            exposure_b=e[13]) for f, e in zip(frames, est)]
@@ -604,23 +610,23 @@ class SLAM:
     def process_frame(self, idx: int) -> dict:
         """One tracking and (on a keyframe) mapping cycle for frame idx."""
         t0 = time.time()
-        with self._section("frame.load"):
-            frame = self._load_frame(idx)
-        if idx == 0:
-            with self._section("init"):
-                self.initialize(frame)
-            self.metrics["frame_times"].append(time.time() - t0)
-            return {"keyframe": True}
-
-        frame, res = self.track(idx, frame)
-        self.frames[idx] = frame
-        create_kf = self._is_keyframe(idx, frame, res)
-        self._push_viewer(idx, frame)
-        if create_kf:
-            self._add_keyframe(idx, res)
-            self.handle_keyframe(idx, frame)
-            self._maybe_checkpoint()
-        self._gc_frames()
+        with span("frame", frame=idx, device=self.device):
+            with span("frame.load"):
+                frame = self._load_frame(idx)
+            if idx == 0:
+                with span("init"):
+                    self.initialize(frame)
+                create_kf = True
+            else:
+                frame, res = self.track(idx, frame)
+                self.frames[idx] = frame
+                create_kf = self._is_keyframe(idx, frame, res)
+                self._push_viewer(idx, frame)
+                if create_kf:
+                    self._add_keyframe(idx, res)
+                    self.handle_keyframe(idx, frame)
+                    self._maybe_checkpoint()
+                self._gc_frames()
         self.metrics["frame_times"].append(time.time() - t0)
         return {"keyframe": create_kf}
 
@@ -629,7 +635,8 @@ class SLAM:
         last_kf = self.kf_list[0]
         create_kf = (idx - last_kf) >= self.kcfg.kf_interval
         if create_kf and self.kcfg.check_viewpoints_overlap:
-            pose = torch.cat([frame.R.reshape(-1), frame.t]).cpu().numpy()
+            with host_read():
+                pose = torch.cat([frame.R.reshape(-1), frame.t]).cpu().numpy()
             create_kf = kf.should_add_as_keyframe(
                 (pose[:9].reshape(3, 3), pose[9:]), self.est_poses[last_kf], res.visibility,
                 self.vis_dict[last_kf], self.median_depth, self.kcfg)
@@ -639,7 +646,7 @@ class SLAM:
         """Frame idx into the keyframe history and the window's list."""
         self.kf_history.add(idx)
         self.vis_dict[idx] = res.visibility
-        with self._section("kf.window_select"):
+        with span("kf.window_select", device=self.device):
             self.kf_list, _ = kf.add_to_window(
                 idx, res.visibility, self.kf_list, self.vis_dict, self.est_poses,
                 self.kcfg, self.is_window_full)
@@ -663,7 +670,7 @@ class SLAM:
         kf_idxs = sorted(self.kf_history)
         B = 8
         done = overflow_max = 0
-        with self._section("refine"):
+        with span("refine", device=self.device):
             staged = dict(zip(kf_idxs, self._fetch_frames_at_pose(kf_idxs)))
 
             def draw() -> Frame:
@@ -685,7 +692,8 @@ class SLAM:
                     self.state, ov = refine_step(self.state, draw(), self.intr, self.mcfg)
                 done += n
                 if done % 200 < B or done >= iters:
-                    overflow_max = max(overflow_max, int(ov))
+                    with host_read():
+                        overflow_max = max(overflow_max, int(ov))
         if overflow_max and not self.mcfg.refine_colors_only:
             Log(f"refine renders dropped up to {overflow_max} entries (raise "
                 f"MapperConfig.refine_tile_capacity / refine_max_dup): refined "
@@ -724,7 +732,8 @@ class SLAM:
                      max_dup=max(self.mcfg.max_dup, 32), max_dup_gen=None,
                      entry_capacity=None, backend=self.mcfg.backend,
                      with_n_touched=False)
-        overflow = int(out.overflow)
+        with host_read():
+            overflow = int(out.overflow)
         if overflow > 1000:
             Log(f"eval render frame {idx}: {overflow} entries dropped even at eval "
                 f"capacities", tag="Eval")
@@ -759,8 +768,9 @@ class SLAM:
         all three axes (get_scales reads channel 0 only; channels 1-2 hold
         untrained values a viewer would render)."""
         st = self.state.gmap
-        active = st.active.cpu().numpy()
-        host = {k: v.detach().cpu().numpy()[active] for k, v in st.params.items()}
+        with host_read():
+            active = st.active.cpu().numpy()
+            host = {k: v.detach().cpu().numpy()[active] for k, v in st.params.items()}
         log_scales = host["log_scales"]
         if self.mcfg.isotropic:
             log_scales = np.repeat(log_scales[:, :1], 3, axis=1)
@@ -773,7 +783,8 @@ class SLAM:
         fps = n_frames / max(wall_s, 1e-9)
         self.metrics["fps"] = fps
         self.metrics["wall_s"] = wall_s
-        drops = [(i, int(d)) for i, d in self.metrics.get("seed_drops", [])]
+        with host_read():
+            drops = [(i, int(d)) for i, d in self.metrics.get("seed_drops", [])]
         self.metrics["seed_drops"] = drops
         for i, d in drops:
             if d:
@@ -915,29 +926,30 @@ class SLAM:
             for idx in range(start_frame, n):
                 t0 = time.time()
                 check()
-                with self._section("frame.load"):
-                    frame = self._load_frame(idx)
-                if idx == 0:
-                    with self._section("init"):
-                        self.initialize(frame)
-                    self.metrics["frame_times"].append(time.time() - t0)
-                    continue
-                drain(block=False)
-                in_flight += bool(pending)
-                frame, res = self.track(idx, frame)
-                tracked += 1
-                self.frames[idx] = frame
-                create_kf = self._is_keyframe(idx, frame, res)
-                self._push_viewer(idx, frame)
-                if create_kf:
-                    self._add_keyframe(idx, res)
-                    pending[idx] = tracked
-                    send((idx, frame, list(self.kf_list), self._event()))
-                    if bootstrap_left > 0 or self._checkpoint_due() or self.mesh is not None:
-                        bootstrap_left = max(bootstrap_left - 1, 0)
-                        drain(block=True)
-                    self._maybe_checkpoint()
-                self._gc_frames()
+                with span("frame", frame=idx, device=self.device):
+                    with span("frame.load"):
+                        frame = self._load_frame(idx)
+                    if idx == 0:
+                        with span("init"):
+                            self.initialize(frame)
+                        self.metrics["frame_times"].append(time.time() - t0)
+                        continue
+                    drain(block=False)
+                    in_flight += bool(pending)
+                    frame, res = self.track(idx, frame)
+                    tracked += 1
+                    self.frames[idx] = frame
+                    create_kf = self._is_keyframe(idx, frame, res)
+                    self._push_viewer(idx, frame)
+                    if create_kf:
+                        self._add_keyframe(idx, res)
+                        pending[idx] = tracked
+                        send((idx, frame, list(self.kf_list), self._event()))
+                        if bootstrap_left > 0 or self._checkpoint_due() or self.mesh is not None:
+                            bootstrap_left = max(bootstrap_left - 1, 0)
+                            drain(block=True)
+                        self._maybe_checkpoint()
+                    self._gc_frames()
                 self.metrics["frame_times"].append(time.time() - t0)
             finished = True
         finally:

@@ -9,8 +9,10 @@ convergence exit at ||tau|| < threshold. The tile bins are frozen for
 
 Host syncs: the JAX loop is one `while_loop` with no host round trip. Here
 the loop is Python, so the convergence exit reads a device bool once per
-iteration (a device-to-host sync). With convergence_threshold <= 0 the exit
-cannot fire and the read is skipped, which changes no result.
+iteration (a device-to-host sync, counted by `profiling.host_read`). With
+convergence_threshold <= 0 the exit cannot fire and the read is skipped,
+which changes no result. While a torch profiler records, each iteration is
+a `track.iter` span.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..ops.graphics import Intrinsics
 from ..ops.losses import get_loss_tracking, get_median_depth
 from ..ops.projection import project_gaussians_ch
 from ..ops.render import make_raster_config, render, render_projected, tile_image
+from ..utils.profiling import fine_span, host_read
 from .camera import Frame
 
 
@@ -75,7 +78,8 @@ class TrackResult(NamedTuple):
 
 def unpack_host_stats(stats) -> dict:
     """Decode TrackResult.host_stats (a single (22,) host read)."""
-    s = stats.detach().cpu().numpy() if torch.is_tensor(stats) else np.asarray(stats)
+    with host_read():
+        s = stats.detach().cpu().numpy() if torch.is_tensor(stats) else np.asarray(stats)
     return {
         "R": s[0:9].reshape(3, 3),
         "t": s[9:12],
@@ -190,21 +194,23 @@ def track_frame(params: dict, active: torch.Tensor | None, frame: Frame,
         budget = min(cfg.rebin_every, cfg.max_iters - i)
         j = 0
         while j < budget and not stop:
-            leaves = (z3.clone().requires_grad_(), z3.clone().requires_grad_(),
-                      ea.detach().clone().requires_grad_(),
-                      eb.detach().clone().requires_grad_())
-            grads = torch.autograd.grad(loss_fn(*leaves, R, t, bins), leaves)
-            with torch.no_grad():
-                upd, adam = _adam4_update(grads, adam, lrs, cfg.adam_eps)
-                d_rho, d_theta, d_ea, d_eb = upd
-                R, t = lie.apply_pose_delta(R, t, d_rho, d_theta)
-                ea = ea + d_ea
-                eb = eb + d_eb
-                tau = torch.cat([d_rho, d_theta])
-                converged = torch.sqrt(torch.sum(tau * tau)) < cfg.convergence_threshold
-            j += 1
-            if check_exit:
-                stop = bool(converged)   # the one device->host sync per iteration
+            with fine_span("track.iter"):
+                leaves = (z3.clone().requires_grad_(), z3.clone().requires_grad_(),
+                          ea.detach().clone().requires_grad_(),
+                          eb.detach().clone().requires_grad_())
+                grads = torch.autograd.grad(loss_fn(*leaves, R, t, bins), leaves)
+                with torch.no_grad():
+                    upd, adam = _adam4_update(grads, adam, lrs, cfg.adam_eps)
+                    d_rho, d_theta, d_ea, d_eb = upd
+                    R, t = lie.apply_pose_delta(R, t, d_rho, d_theta)
+                    ea = ea + d_ea
+                    eb = eb + d_eb
+                    tau = torch.cat([d_rho, d_theta])
+                    converged = torch.sqrt(torch.sum(tau * tau)) < cfg.convergence_threshold
+                j += 1
+                if check_exit:
+                    with host_read():    # the one device->host sync per iteration
+                        stop = bool(converged)
         i += j
 
     # Final no-grad render for the median depth and the visibility.

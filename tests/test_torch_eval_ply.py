@@ -113,16 +113,22 @@ def test_ply_bytes_match_jax_and_round_trip(k_scales, tmp_path):
 
 
 def test_profiling_sections_and_trace(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
     from monogs_torch.utils import profiling
 
     profiling.reset()
     for device in (None, "cpu", torch.device("cpu")):
-        with profiling.section("a", sync=True, device=device):
+        with profiling.span("a", device=device):
             torch.ones(4).sum()
     s = profiling.summary()
     assert list(s) == ["a"] and s["a"]["n"] == 3 and s["a"]["total_s"] >= 0.0
     profiling.reset()
     assert profiling.summary() == {}
-    with profiling.device_trace(str(tmp_path / "trace")):
-        torch.ones(8).cumsum(0)
-    assert list((tmp_path / "trace").glob("trace-*.json"))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.span("b", frame=4):
+            torch.ones(8).cumsum(0)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    assert '"b"' in (tmp_path / "trace.json").read_text()
+    assert profiling.summary()["b"]["n"] == 1
+    profiling.reset()
