@@ -10,6 +10,11 @@ Phases, one line each; any failure propagates and exits non-zero:
      and each slab kernel's launch shape at tile 32 (threads, pixels a
      thread, blocks an SM, registers, spill bytes): no spills, slab_bwd at
      two or more blocks an SM;
+ 2b. the tile-binning kernels (csrc/binning.cu) against their plain twin
+     on the same CUDA tensors, every TileBins field bit for bit, at the
+     benchmark cells' widths (320x240, the room cut to 32,768 rows, caps
+     that drop nothing) at tile 32 and tile 16; one call's device and host
+     time, the twin's, the kernels a call and the output-bytes bound;
   3. kernels against their plain PyTorch twins on the card, at the
      bench.py widths (640x480, 100k Gaussians, tile 32, K 2048,
      entry_capacity 210432) and at n_img=2 on a small slab; the two
@@ -65,7 +70,8 @@ Phases, one line each; any failure propagates and exits non-zero:
      the map. It fails on a non-finite pose, ATE >= 0.05 m, PSNR <= 15 dB,
      a bad PLY, a slab kernel that did not launch, a tracker or mapper
      backend other than "slab", or a plain twin or the dense oracle called
-     (a CPU tensor or the "ref" backend on the path). Then, through the
+     (a CPU tensor or the "ref" backend on the path; the binning twin
+     among them), or tile_bin's kernels not launched. Then, through the
      same command line (--refine-curve 0,400), the colour refinement: the
      map evaluated before it (the PSNR line and gate above read this
      evaluation), 400 colours-only iterations, evaluated again; ms per
@@ -399,6 +405,85 @@ def order_ab(args, rcfg, baux, K: int, shape: str, smi: str) -> None:
          tile_order_ms=cuda_ms(lambda: kernels.tile_order(args[2]), 20, graph=True),
          heaviest_first_ms=statistics.mean(t["heaviest_first"]),
          id_order_ms=statistics.mean(t["id_order"]), card=repr(smi))
+
+
+# The benchmark's cells (slambench/configs/room-rgbd-320.yaml): 320x240 at
+# TUM fr3's field of view, a map of 32,768 rows, caps that drop nothing.
+BIN_W, BIN_H, BIN_ROWS, BIN_FRAME = 320, 240, 32_768, 40
+BIN_CAPS = dict(tile_capacity=16_384, max_dup=300, max_dup_gen=300, entry_capacity=1_310_720)
+
+
+def binning_phase(smi: str = "") -> None:
+    """Phase 2b: the tile-binning kernels (csrc/binning.cu) against their
+    plain twin on the same CUDA tensors, every TileBins field bit for bit,
+    at the cells' widths: the room (roofline.room_projection, BIN_ROWS rows
+    at orbit frame BIN_FRAME) binned at tile 32 (the tracker's and the
+    window's binning, T 80) and tile 16 (the keyframe extend's, T 300);
+    then, at each, one call's device time (CUDA-graph replay of 20 calls),
+    its host time (20 calls, synced), the twin's device time, the kernels
+    launched a call (profiler) beside the twin's, and the bound: the bytes
+    of the outputs at the HBM rate."""
+    import torch
+    from monogs_torch.ops import binning, kernels
+    from monogs_torch.ops.graphics import Intrinsics
+    from monogs_torch.tools import roofline
+
+    dev = torch.device("cuda")
+    intr = Intrinsics(fx=267.7, fy=269.6, cx=159.8, cy=123.55, width=BIN_W, height=BIN_H)
+    p = roofline.room_projection(BIN_ROWS, BIN_FRAME, intr, dev)
+    for tile, shape in ((32, "tracking/mapping"), (16, "extend")):
+        tx, ty = -(-BIN_W // tile), -(-BIN_H // tile)
+        K, P_cap = BIN_CAPS["tile_capacity"], BIN_CAPS["entry_capacity"]
+
+        def kern():
+            return binning.tile_bin(None, p.radius, p.depth, p.valid, img_w=BIN_W, img_h=BIN_H,
+                                    tile_size=tile, opacity=p.opacity, conic=(p.ca, p.cb, p.cc),
+                                    uv=(p.u, p.v), **BIN_CAPS)
+
+        def launch():
+            return kernels.tile_bin(p.u, p.v, p.radius, p.depth, p.valid, p.opacity,
+                                    (p.ca, p.cb, p.cc), tiles_x=tx, tiles_y=ty,
+                                    tile_size=tile, K=K, max_dup=BIN_CAPS["max_dup"],
+                                    max_dup_gen=BIN_CAPS["max_dup_gen"], P_cap=P_cap,
+                                    cull_alpha=binning.ALPHA_EPS)
+
+        def plain():
+            return binning._tile_bin_plain(p.u, p.v, p.radius, p.depth, p.valid, p.opacity,
+                                           (p.ca, p.cb, p.cc), tx, ty, tile, K,
+                                           BIN_CAPS["max_dup"], BIN_CAPS["max_dup_gen"],
+                                           P_cap, binning.ALPHA_EPS)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        same = {f: bool(torch.equal(getattr(got, f), getattr(want, f)))
+                for f in binning.TileBins._fields}
+        line("check", kernel="tile_bin", shape=shape, tile=tile, tiles=tx * ty,
+             bit_identical=all(same.values()), entries=int(want.counts.sum()),
+             overflow=int(want.overflow), visible=int(p.valid.sum()),
+             fields_off=[f for f, ok in same.items() if not ok])
+        require(all(same.values()), f"tile_bin's kernels differ from the twin at tile {tile}")
+        out_bytes = 4 * sum(getattr(want, f).numel() for f in binning.TileBins._fields)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            kern()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        prof_k, prof_p = device_profile(kern, 1, top=12), device_profile(plain, 1)
+        # The launcher alone under the graph: the `bin` span around it reads
+        # its events back, which a stream capture does not allow.
+        line("kernel", name="tile_bin", shape=shape, tile=tile, rows=BIN_ROWS,
+             ms=cuda_ms(launch, 20, graph=True), host_ms=host_ms,
+             plain_ms=cuda_ms(plain, 3, warmup=1),
+             bound_ms=out_bytes / H100_HBM_BYTES * 1e3, bound_by="bytes",
+             out_bytes=out_bytes,
+             launches=prof_k and prof_k["device_launches_per_iter"],
+             plain_launches=prof_p and prof_p["device_launches_per_iter"], card=repr(smi))
+        if prof_k is not None:
+            for op, op_ms, calls in prof_k["top"]:
+                print(f"  device: {op_ms:.4f} ms/call  {calls:5.2f} calls/call  {op}")
+    for ln in kernels.build_log("binning").splitlines():
+        if "registers" in ln or "spill" in ln:
+            print("  ptxas (binning):", ln.strip().removeprefix("ptxas info    : "))
 
 
 def build_mapping_state(dev, opacity_shift: float = 0.0):
@@ -797,17 +882,18 @@ def drive_cli(argv: list) -> tuple[dict, dict]:
     import torch
     from monogs_torch.__main__ import main as slam_main
     from monogs_torch.data.synthetic import SyntheticDataset
-    from monogs_torch.ops import kernels, render, tile_raster
+    from monogs_torch.ops import binning, kernels, render, tile_raster
     from monogs_torch.slam import mapper
     from monogs_torch.slam.system import SLAM
 
     os.environ["MONOGS_SYNTH_CACHE"] = "0"
     counted = (kernels.slab_fwd, kernels.slab_bwd, kernels.rows_to_channels,
-               kernels.tile_order, kernels.op_microbench)
+               kernels.tile_order, kernels.op_microbench, kernels.tile_bin)
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     # Each twin, the oracle and tile_bin are counted in the module whose
     # code calls them: the slab twins in tile_raster's dispatchers, the
+    # binning twin in binning.tile_bin's, the
     # oracle and the render's binning in render.py and the refinement's
     # binning in mapper.py, which import them by name. (The tile order's
     # twin is reached only from the card tests and phase 3.) The GT
@@ -815,8 +901,9 @@ def drive_cli(argv: list) -> tuple[dict, dict]:
     # around the dataset's render.
     patched = ((tile_raster, "_fwd_slab_plain"), (tile_raster, "_bwd_slab_plain"),
                (tile_raster, "_rows_to_channels_plain"), (render, "composite_tiles_ref"),
+               (binning, "_tile_bin_plain"),
                (tile_raster, "_fwd_slab"), (render, "tile_bin"), (mapper, "tile_bin"))
-    twins = tuple(n for _, n in patched[:4])
+    twins = tuple(n for _, n in patched[:5])
     twin_calls = {n: 0 for n in twins}
     saved = {(mod.__name__, n): getattr(mod, n) for mod, n in patched}
     saved_render, saved_refine = SyntheticDataset._render_pose, SLAM.refine
@@ -884,7 +971,7 @@ def drive_cli(argv: list) -> tuple[dict, dict]:
         key = f"{threading.current_thread().name}:{stage}"
         reads_by_thread[key] = reads_by_thread.get(key, 0) + 1
 
-    for mod, n in patched[:4]:
+    for mod, n in patched[:5]:
         setattr(mod, n, count_twin(mod, n))
     tile_raster._fwd_slab = fwd_slab
     render.tile_bin = count_bin(render, "render")
@@ -949,7 +1036,8 @@ def check_run(out: dict, c: dict, smi: str, path: str, synthetic: bool = True) -
     require(finite, f"{path}: a frame's pose is not finite")
     require(ply_ok, f"{path}: the PLY is empty or disagrees with the map")
     require(launches["slab_fwd"] > 0 and launches["slab_bwd"] > 0
-            and launches["rows_to_channels"] > 0 and launches["tile_order"] > 0,
+            and launches["rows_to_channels"] > 0 and launches["tile_order"] > 0
+            and launches["tile_bin"] > 0,
             f"{path}: a kernel of the system path did not launch")
     if synthetic:
         require(gt["renders"] >= out["n_frames"] and gt["slab_fwd"] >= gt["renders"],
@@ -1943,6 +2031,9 @@ def main() -> int:
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", mb)]
     line("build", microbench_variants=len(regs), registers=f"{min(regs)}-{max(regs)}",
          spill_bytes=sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", mb)))
+
+    # 2b. The binning kernels against their twin at the cells' widths.
+    binning_phase(smi)
 
     # 3. Kernels against their plain twins, at bench widths.
     intr = Intrinsics(fx=520.9, fy=521.0, cx=W / 2, cy=H / 2, width=W, height=H)

@@ -5,6 +5,8 @@
     tile_order        csrc/composite.cu   (the slab kernels' tile order)
     rows_to_channels  csrc/relayout.py    (Triton; (N, C) or batched (B, N, C))
     op_microbench     csrc/microbench.cu  (CUDA C++, sm_90a, ctypes)
+    tile_bin          csrc/binning.cu     (CUDA C++, sm_90a, ctypes; a
+                                           sequence of ten kernels)
 
 Each CUDA source is compiled with nvcc into a shared library with a plain C
 interface at first use, under build/kernels/ beside the package (named by
@@ -14,10 +16,11 @@ loaded by path and compiled by Triton at its first launch, with its cache
 under build/triton/. Nothing here runs at import, so the package imports on
 a machine without nvcc, triton or a card.
 
-Each launcher takes CUDA tensors only (the dispatchers in tile_raster.py
-and tools/roofline.py send CPU tensors to the plain twins), checks device, dtype, shape and
-contiguity, allocates its outputs with torch, launches on the current
-stream, raises if the launch failed, and counts its launches in the plain
+Each launcher takes CUDA tensors only (the dispatchers in tile_raster.py,
+binning.py and tools/roofline.py send CPU tensors to the plain twins),
+checks device, dtype, shape and contiguity, allocates its outputs (and
+scratch) with torch, launches on the current stream, raises if the launch
+failed, and counts its launches (for tile_bin, its binnings) in the plain
 integer attribute `launches`, and per CUDA stream (`stream_key`) in the
 dict `by_stream`. It never synchronises.
 
@@ -45,7 +48,7 @@ import threading
 
 import torch
 
-from .binning import CHUNK, SLAB
+from .binning import CHUNK, SLAB, TileBins
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -57,7 +60,7 @@ NVCC_FLAGS = (
     "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-CUDA_SOURCES = ("composite", "microbench")
+CUDA_SOURCES = ("composite", "microbench", "binning")
 
 
 def _nvcc() -> str:
@@ -199,6 +202,18 @@ def _relayout_module():
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
+
+
+@_once
+def _binning_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build_all(("binning",))["binning"])
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.tile_bin_scratch_bytes.argtypes = [i32, i32, i64]
+    lib.tile_bin_scratch_bytes.restype = i64
+    lib.tile_bin.argtypes = ([ptr] * 9 + [i32] * 8 + [ctypes.c_float, i64, ptr]
+                             + [ptr] * 11 + [ptr])
+    lib.tile_bin.restype = i32
+    return lib
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int):
@@ -376,7 +391,59 @@ def op_microbench(x: torch.Tensor, op: str, n_rep: int,
     return out
 
 
-LAUNCHERS = (slab_fwd, slab_bwd, tile_order, rows_to_channels, op_microbench)
+def tile_bin(u, v, radius, depth, valid, opacity, conic, *, tiles_x: int, tiles_y: int,
+             tile_size: int, K: int, max_dup: int, max_dup_gen: int | None, P_cap: int,
+             cull_alpha: float) -> TileBins:
+    """Tile-binning kernels: (N,) float32 u, v, radius, depth, bool valid,
+    and opacity with conic (ca, cb, cc) for the peak-alpha cull (or both
+    None) -> TileBins, every field as binning._tile_bin_plain gives it.
+    Scratch for the live entries is sized by the most a binning can hold,
+    N * min(max_dup, T), and taken per call."""
+    chans = {"u": u, "v": v, "radius": radius, "depth": depth}
+    if (opacity is None) != (conic is None):
+        raise ValueError("tile_bin: opacity and conic go together")
+    if opacity is not None:
+        chans.update(opacity=opacity, ca=conic[0], cb=conic[1], cc=conic[2])
+    for name, t in chans.items():
+        _check(t, name, torch.float32, 1)
+    _check(valid, "valid", torch.bool, 1)
+    N, dev = u.shape[0], u.device
+    for name, t in (*chans.items(), ("valid", valid)):
+        if t.shape[0] != N or t.device != dev:
+            raise ValueError(f"{name}: need ({N},) on {dev}, got {tuple(t.shape)} on {t.device}")
+    T = tiles_x * tiles_y
+    # As _tile_candidates: candidates are generated max(max_dup_gen, max_dup) wide.
+    D_gen = max_dup if max_dup_gen is None else max(max_dup_gen, max_dup)
+    E_max = N * min(max_dup, T)
+    if max(E_max, T * K, P_cap) >= 2 ** 31:
+        raise ValueError(f"tile_bin: {E_max} entries, {T} x {K} tile slots or "
+                         f"{P_cap} slab slots do not fit int32")
+    lib = _binning_lib()
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    EB = P_cap // SLAB
+    bins = TileBins(index_matrix=empty(T, K), counts=empty(T), pstart_blk=empty(T),
+                    owner_blk=empty(EB), seg_first=empty(EB), gauss_of_pos=empty(P_cap),
+                    gsort_pos=empty(P_cap), gseg_start=empty(P_cap), g_last=empty(N),
+                    overflow=empty(), overflow_parts=empty(4))
+    scratch = torch.empty(lib.tile_bin_scratch_bytes(N, T, E_max), dtype=torch.uint8,
+                          device=dev)
+    cull = [t.data_ptr() for t in (opacity, *conic)] if opacity is not None else [None] * 4
+    with torch.cuda.device(dev):
+        rc = lib.tile_bin(
+            u.data_ptr(), v.data_ptr(), radius.data_ptr(), depth.data_ptr(),
+            valid.data_ptr(), *cull, N, tiles_x, tiles_y, tile_size, K, max_dup, D_gen,
+            P_cap, cull_alpha, E_max, scratch.data_ptr(), *(f.data_ptr() for f in bins),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"tile_bin launch failed: CUDA error {rc}")
+    _count(tile_bin, dev)
+    return bins
+
+
+LAUNCHERS = (slab_fwd, slab_bwd, tile_order, rows_to_channels, op_microbench, tile_bin)
 
 
 def reset_launches() -> None:

@@ -210,6 +210,33 @@ def bench_map(n: int, seed: int, device="cuda") -> dict:
 
 
 @torch.no_grad()
+def room_projection(n: int, frame: int, intr, device="cuda", seed: int = 0):
+    """The synthetic room of data/synthetic.py (150,000 Gaussians, seed 0)
+    cut to `n` rows drawn with numpy from `seed`, their scales grown by
+    sqrt(150,000 / n) so that the rows still cover the walls, projected at
+    the room orbit's w2c pose of `frame` (motion 0.016, as the benchmark's
+    room) -> ProjectedChannels with the opacity 0 where not valid."""
+    import numpy as np
+
+    from ..data.synthetic import _orbit_trajectory, _room_scene
+    from ..ops.projection import project_gaussians_ch
+
+    total = 150_000
+    means, scales, quats, opac, _ = _room_scene(total, 0)
+    rows = np.random.default_rng(seed).choice(total, n, replace=False)
+    pose = torch.as_tensor(_orbit_trajectory(frame + 1, 0.016)[frame], dtype=torch.float32,
+                           device=device)
+
+    def dev(a):
+        return torch.as_tensor(a[rows], dtype=torch.float32, device=device)
+
+    z3 = torch.zeros(3, device=device)
+    p = project_gaussians_ch(dev(means), dev(scales) * (total / n) ** 0.5, dev(quats),
+                             dev(opac), pose[:3, :3], pose[:3, 3], z3, z3, intr)
+    return p._replace(opacity=torch.where(p.valid, p.opacity, torch.zeros_like(p.opacity)))
+
+
+@torch.no_grad()
 def slab_inputs(params, intr, R, t, tile_size: int, tile_capacity: int,
                 entry_capacity, max_dup: int = 4, max_dup_gen: int = 16):
     """One view's bins and its (1, 16, E_cap) slab at the w2c pose (R, t)."""

@@ -12,6 +12,7 @@ from monogs_tpu.ops import binning as jbin
 from monogs_tpu.ops import projection as jproj
 from monogs_tpu.ops.graphics import Intrinsics
 from monogs_torch.ops import binning as tbin
+from monogs_torch.ops import kernels
 
 torch.set_num_threads(2)   # the test workers share the CPUs (tests/test_torch_system.py)
 
@@ -120,6 +121,24 @@ def test_tile_bin_matrix_input_and_float_ties():
                        opacity=torch.as_tensor(p["opacity"]),
                        conic=torch.as_tensor(conic), **kw)
     _assert_identical(bj, bt)
+
+
+def test_cpu_tensors_take_the_plain_twin(monkeypatch):
+    """tile_bin on CPU tensors runs _tile_bin_plain and launches no kernel;
+    the kernels' launcher refuses CPU tensors (tests/test_torch_bin_kernels.py
+    holds the kernels to the twin on the card)."""
+    calls, plain = [], tbin._tile_bin_plain
+    monkeypatch.setattr(tbin, "_tile_bin_plain", lambda *a: calls.append(a) or plain(*a))
+    before = kernels.tile_bin.launches
+    p = {k: torch.as_tensor(v) for k, v in _projection(200, seed=5).items()}
+    bins = tbin.tile_bin(None, p["radius"], p["depth"], p["valid"], img_w=W, img_h=H,
+                         uv=(p["u"], p["v"]), tile_capacity=256, max_dup=8)
+    assert len(calls) == 1 and int(bins.counts.sum()) > 0
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.tile_bin(p["u"], p["v"], p["radius"], p["depth"], p["valid"], None, None,
+                         tiles_x=4, tiles_y=3, tile_size=16, K=256, max_dup=8,
+                         max_dup_gen=None, P_cap=tbin.SLAB, cull_alpha=tbin.ALPHA_EPS)
+    assert kernels.tile_bin.launches == before == kernels.tile_bin.by_stream.get("default", 0)
 
 
 @pytest.mark.parametrize("args", [(1000, 4, 300, 2048), (50, 16, 12, 256),
