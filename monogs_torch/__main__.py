@@ -283,7 +283,9 @@ def main(argv: list[str] | None = None) -> dict:
         summary["refine_curve"] = refine_curve
     if "refine_overflow_max" in slam.metrics:
         summary["refine_overflow_max"] = slam.metrics["refine_overflow_max"]
-    summary["stages"] = profiling.summary()
+    stages = profiling.summary()
+    summary["counters"] = stages.pop("counters", {})
+    summary["stages"] = stages
     if primary:
         with open(os.path.join(save_dir, "metrics.json"), "w") as f:
             json.dump(summary, f, indent=1)

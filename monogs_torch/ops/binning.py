@@ -17,7 +17,7 @@ sorts are stable (`torch.sort(stable=True)`, as `jax.lax.sort` is),
 searchsorted keeps each call's side, and the depth bitcast is
 `.view(torch.int32)`. Binning carries no gradient: it runs on detached
 tensors. Every `tile_bin` is a `bin` span (utils/profiling.py), whoever
-calls it.
+calls it, and counts its live entries and its slab rows at its path.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 
 ALPHA_EPS = 1.0 / 255.0  # rasterizer alpha floor (shared with tile_raster)
 DEPTH_BITS = 20          # key bits for depth below the tile id
@@ -191,23 +191,29 @@ def tile_bin(
         raise ValueError("entry_capacity must be a positive multiple of SLAB")
     P_cap = entry_capacity
 
-    with span("bin", device=dev):
+    with span("bin", device=dev) as sp:
         if dev.type == "cpu":
-            return _tile_bin_plain(u, v, radius, depth, valid, opacity, conic, tiles_x,
+            bins = _tile_bin_plain(u, v, radius, depth, valid, opacity, conic, tiles_x,
                                    tiles_y, tile_size, K, max_dup, max_dup_gen, P_cap,
                                    cull_alpha)
-        from . import kernels
-
-        # The twin culls only with both the opacity and the conic.
-        if opacity is not None and conic is not None:
-            opacity, conic = opacity.contiguous(), tuple(c.contiguous() for c in conic)
         else:
-            opacity = conic = None
-        return kernels.tile_bin(
-            u.contiguous(), v.contiguous(), radius.contiguous(), depth.contiguous(),
-            valid.contiguous(), opacity, conic, tiles_x=tiles_x, tiles_y=tiles_y,
-            tile_size=tile_size, K=K, max_dup=max_dup, max_dup_gen=max_dup_gen,
-            P_cap=P_cap, cull_alpha=cull_alpha)
+            from . import kernels
+
+            # The twin culls only with both the opacity and the conic.
+            if opacity is not None and conic is not None:
+                opacity, conic = opacity.contiguous(), tuple(c.contiguous() for c in conic)
+            else:
+                opacity = conic = None
+            bins = kernels.tile_bin(
+                u.contiguous(), v.contiguous(), radius.contiguous(), depth.contiguous(),
+                valid.contiguous(), opacity, conic, tiles_x=tiles_x, tiles_y=tiles_y,
+                tile_size=tile_size, K=K, max_dup=max_dup, max_dup_gen=max_dup_gen,
+                P_cap=P_cap, cull_alpha=cull_alpha)
+    # How full the slab is, summed on the device (two launches), at the
+    # span's path but outside it, so the span times the binning alone.
+    count("slab_live", bins.counts.sum(), at=sp)
+    count("slab_rows", P_cap, at=sp)
+    return bins
 
 
 @torch.no_grad()

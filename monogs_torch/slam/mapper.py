@@ -511,8 +511,9 @@ def covisibility_prune(state: MapperState, visibility: torch.Tensor,
 @torch.no_grad()
 def extend_event(state: MapperState, frame: Frame, kf_idx, intr: Intrinsics,
                  cfg: MapperConfig, init: bool, scores_u=None, depth_noise=None):
-    """Render the map from the new keyframe (no grad) for the densification
-    mask, then seed Gaussians from it into free slots. -> (state, (n_added,
+    """Render the map from the new keyframe (no grad, at the configured tile
+    and caps, as every render of the mapper) for the densification mask,
+    then seed Gaussians from it into free slots. -> (state, (n_added,
     n_dropped))."""
     gmap = state.gmap
     render_depth = render_opacity = None
@@ -520,7 +521,7 @@ def extend_event(state: MapperState, frame: Frame, kf_idx, intr: Intrinsics,
         out = render(gmap.params["xyz"], gm.get_scales(gmap.params, cfg.isotropic),
                      gmap.params["quats"], gm.get_opacity(gmap.params),
                      gmap.params["rgb"], frame.R, frame.t, intr, active=gmap.active,
-                     backend=cfg.backend, **_render_caps(cfg))
+                     tile_size=cfg.tile_size, backend=cfg.backend, **_render_caps(cfg))
         render_depth, render_opacity = out.depth, out.opacity
     res = gm.extend_from_keyframe(
         gmap, state.adam, state.rng, rgb=frame.rgb, depth=frame.depth,
@@ -664,10 +665,12 @@ def _log_overflow(parts) -> None:
 
 
 def run_initialize_map(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
-                       mesh=None):
+                       mesh=None, reprobe=None):
     """The map initialisation: init_itr_num iterations on the init keyframe
     with densify every init_gaussian_update and an opacity reset at
-    init_gaussian_reset (sharded over `mesh`'s ranks when given).
+    init_gaussian_reset (sharded over `mesh`'s ranks when given). After
+    each densify, `reprobe(state) -> MapperConfig` (the system's slab
+    capacity probe) gives the caps of the binnings that follow.
     -> (state, visibility (Wc, C))."""
     with host_read():
         cur = int(state.nr_iters)
@@ -685,17 +688,21 @@ def run_initialize_map(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
             state = state._replace(nr_iters=torch.full_like(state.nr_iters, cur))
         if (cur - 1) % cfg.init_gaussian_update == 0:
             state, _ = densify_event(state, cfg, init_phase=True)
+            if reprobe is not None:
+                cfg = reprobe(state)
         if cur == cfg.init_gaussian_reset:
             state = reset_opacity_event(state)
     return state, visibility_pass(state, intr, cfg)
 
 
 def run_optimize_map(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
-                     iters: int, defer_overflow_read: bool = True, mesh=None):
+                     iters: int, defer_overflow_read: bool = True, mesh=None,
+                     reprobe=None):
     """The per-keyframe mapping loop: `iters` iterations in spans between
     the cadence events (densify at gaussian_update_every / offset, the
     non-visible opacity reset at gaussian_reset), sharded over `mesh`'s
-    ranks when given. -> (state, visibility).
+    ranks when given; after a densify, `reprobe` as in
+    run_initialize_map. -> (state, visibility).
 
     Overflow telemetry, read to log each span over the limit: deferred
     (the synchronous mode, where the mapper owns the device), every span's
@@ -724,6 +731,8 @@ def run_optimize_map(state: MapperState, intr: Intrinsics, cfg: MapperConfig,
             _log_overflow(parts)
         if it % cfg.gaussian_update_every == cfg.gaussian_update_offset:
             state, _ = densify_event(state, cfg, init_phase=False)
+            if reprobe is not None:
+                cfg = reprobe(state)
         elif it % cfg.gaussian_reset == 0:
             state = reset_nonvisible_event(state, aux.vis_filter.any(0))
     vis = visibility_pass(state, intr, cfg)

@@ -18,8 +18,9 @@ run.
 
 Host reads, as in the JAX package: one (22,) `host_stats` read per
 tracked frame (the tracker's convergence exit reads one bool per
-iteration besides), one read of `window_host_pack` per keyframe, and in
-`refine` one overflow read every 200 iterations and one at the end.
+iteration besides), one read of `window_host_pack` per keyframe, one per
+slab-capacity probe (below), and in `refine` one overflow read every 200
+iterations and one at the end.
 Each read is wrapped in `profiling.host_read`, and the stages are spans
 (utils/profiling.py), none of which waits for the device: `frame` around
 each frame, in it `frame.load`, `init`, `track.dispatch`,
@@ -32,11 +33,21 @@ SystemConfig.mesh_devices the mapper's window shards over the ranks of a
 process group (parallel/): every rank runs this frame loop on the
 same stream, and the mapping spans run sharded, the rest replicated.
 
+Slab capacities: an entry capacity left None is derived from the seeded
+map, and after every event that grows the map (the seeding, each densify,
+each keyframe's extend) one probe (`_reprobe`, a `probe` span and one host
+read) raises the mapping and tracking capacities to what the map needs at
+the window's poses, before the next binning; so does one probe at a new
+keyframe's pose before its extend renders there. A probe never lowers a
+capacity, hand-set or derived, and raises run under one lock (in
+`run_async` the tracker's backstops raise the tracking capacity too).
+
 Not carried over from the JAX package: the background compiles of
-`prewarm` and the demand re-probes (eager PyTorch has no compile step: a
-re-probe adopts a larger entry capacity at once, and `prewarm` builds the
-CUDA kernels), and `_place_state` (the state stays whole between mapping
-spans; each span takes its rank's share and gathers it back).
+`prewarm` and its every-8-keyframes mapping re-probe (eager PyTorch has no
+compile step: a probe adopts a larger entry capacity at once, and
+`prewarm` builds the CUDA kernels), and `_place_state` (the state stays
+whole between mapping spans; each span takes its rank's share and gathers
+it back).
 """
 
 from __future__ import annotations
@@ -67,7 +78,7 @@ from ..utils.config import (
 from ..utils.eval import eval_rendering, eval_traj_ate
 from ..utils.logging import Log, WandbLogger
 from ..utils.ply import save_ply
-from ..utils.profiling import host_read, span
+from ..utils.profiling import count, host_read, span
 from . import keyframes as kf
 from .camera import Frame, make_frame, window_from_list, window_update
 from .mapper import (
@@ -134,13 +145,14 @@ def const_velocity_init(prev: tuple, prev2: tuple, base: tuple | None = None) ->
 
 class SLAM:
     # Slab rows per pixel, with headroom: the slab's occupancy is bounded
-    # by the screen (about 0.4 rows a pixel once the map is dense), so the
-    # derived capacity is max(1.25x the first frame's padded demand, this
-    # bound), with the overflow bump as the backstop. The JAX package also
+    # by the screen (about 0.4 rows a pixel once the map is dense), so a
+    # derived capacity starts at this bound; the probe after every event
+    # that grows the map (`_reprobe`) raises it to 1.25x the padded
+    # demand, with the overflow bump as the backstop. The JAX package also
     # snaps capacities under a gather-memory cliff it measured on its TPU;
     # that cliff is a TPU memory size and has no counterpart here.
     ENTRY_DENSITY = 0.7
-    # Frames between the tracker's demand re-probes (keyframes: 8).
+    # Tracked frames between the tracker's backstop re-probes.
     REPROBE_EVERY = 25
 
     def __init__(self, dataset, config: dict | None = None, tracker_config=None,
@@ -181,7 +193,7 @@ class SLAM:
                         "overflow": []}
         self._cap_bumps = 0          # overflow-triggered entry_capacity raises
         self._probe_counter = 0
-        self._kf_probe_counter = 0
+        self._cap_lock = threading.Lock()
         self.wandb = WandbLogger(enabled=self.scfg.use_wandb, config=config)
         self._prefetcher = (_FramePrefetcher(self._load_frame_impl)
                             if self.scfg.prefetch else None)
@@ -340,80 +352,116 @@ class SLAM:
                 * -(-self.intr.height // cfg.tile_size))
 
     @torch.no_grad()
-    def _entry_demand(self, cfg, frame: Frame) -> tuple[int, int]:
-        """(padded slab rows, live entries) the current map needs at the
-        frame's pose under cfg's caps; one host read."""
-        st = self.read_state().gmap
+    def _demand(self, gmap, cfg, R, t):
+        """(padded slab rows, live entries), () device tensors: what `gmap`
+        needs at the pose (R, t) under cfg's caps."""
         z3 = torch.zeros(3, device=self.device)
         proj = project_gaussians_ch(
-            st.params["xyz"], gm.get_scales(st.params, cfg.isotropic),
-            st.params["quats"], gm.get_opacity(st.params), frame.R, frame.t,
-            z3, z3, self.intr, active=st.active)
-        padded, entries = measure_entry_demand(
+            gmap.params["xyz"], gm.get_scales(gmap.params, cfg.isotropic),
+            gmap.params["quats"], gm.get_opacity(gmap.params), R, t,
+            z3, z3, self.intr, active=gmap.active)
+        return measure_entry_demand(
             proj.u, proj.v, proj.radius, proj.valid, proj.opacity,
             (proj.ca, proj.cb, proj.cc), img_w=self.intr.width,
             img_h=self.intr.height, tile_size=cfg.tile_size,
             tile_capacity=cfg.tile_capacity, max_dup=cfg.max_dup,
             max_dup_gen=cfg.max_dup_gen)
-        with host_read():
-            padded, entries = torch.stack([padded, entries]).tolist()
+
+    def _entry_demand(self, cfg, frame: Frame) -> tuple[int, int]:
+        """(padded slab rows, live entries) the current map needs at the
+        frame's pose under cfg's caps; one host read."""
+        with span("probe", device=self.device):
+            padded, entries = self._demand(self.read_state().gmap, cfg, frame.R, frame.t)
+            with host_read():
+                padded, entries = torch.stack([padded, entries]).tolist()
         return padded, entries
 
-    def _derive_entry_capacities(self, frame: Frame):
-        """Configs that leave entry_capacity None get max(1.25x the padded
-        demand at the first frame, the screen-density bound), SLAB-rounded
-        and clamped to the safe auto capacity."""
-        st = self.state.gmap
+    def _rows_for(self, cfg, padded: int, capacity: int) -> int:
+        """1.25x the padded demand, SLAB-rounded, at most the safe auto
+        capacity of a map of `capacity` rows."""
+        rows = -(-(padded * 5 // 4) // SLAB) * SLAB
+        return min(rows, auto_entry_capacity(capacity, cfg.max_dup, self._num_tiles(cfg),
+                                             cfg.tile_capacity))
+
+    def _raise_capacity(self, name: str, rows: int, why: str) -> bool:
+        """Raise self.<name>'s entry_capacity to `rows` if that is more.
+        Under a lock: in run_async the mapper's probes and the tracker's
+        backstops both raise the tracking capacity."""
+        with self._cap_lock:
+            cfg = getattr(self, name)
+            if rows <= cfg.entry_capacity:
+                return False
+            Log(f"{why}: {'tracking' if name == 'tcfg' else 'mapping'} entry_capacity "
+                f"{cfg.entry_capacity} -> {rows}", tag="System")
+            setattr(self, name, dataclasses.replace(cfg, entry_capacity=rows))
+        count("capacity_raise")
+        return True
+
+    def _derive_entry_capacities(self):
+        """Configs that leave entry_capacity None start from the
+        screen-density bound (ENTRY_DENSITY of the pixels, SLAB-rounded,
+        at most the safe auto); the probe of the seeded map then raises
+        them to 1.25x its padded demand."""
+        pixels = self.intr.width * self.intr.height
         for name in ("tcfg", "mcfg"):
             cfg = getattr(self, name)
             if cfg.entry_capacity is not None:
                 continue
-            padded, entries = self._entry_demand(cfg, frame)
-            pixels = self.intr.width * self.intr.height
-            rows = max(padded * 5 // 4, int(self.ENTRY_DENSITY * pixels))
-            rows = -(-rows // SLAB) * SLAB
-            safe = auto_entry_capacity(st.capacity, cfg.max_dup, self._num_tiles(cfg),
-                                       cfg.tile_capacity)
+            rows = -(-int(self.ENTRY_DENSITY * pixels) // SLAB) * SLAB
+            safe = auto_entry_capacity(self.state.gmap.capacity, cfg.max_dup,
+                                       self._num_tiles(cfg), cfg.tile_capacity)
             rows = max(min(rows, safe), SLAB)
             setattr(self, name, dataclasses.replace(cfg, entry_capacity=rows))
-            Log(f"{name} entry_capacity {rows} rows (probe: {padded} padded / "
-                f"{entries} entries, safe auto {safe})", tag="System")
+            Log(f"{name} entry_capacity {rows} rows (screen density; safe auto {safe})",
+                tag="System")
+
+    def _reprobe(self, gmap, poses):
+        """After an event that grew the map (the seeding, a densify, a
+        keyframe's extend), or before a render at a new pose (the extend's):
+        raise the mapping capacity to what `gmap` needs at each (R, t) of
+        `poses` (newest first) and the tracking capacity to what it needs
+        at the newest, 1.25x the padded demand and at most the safe auto
+        capacity. One host read. -> the mapping config."""
+        def caps(cfg):
+            return (cfg.tile_size, cfg.tile_capacity, cfg.max_dup, cfg.max_dup_gen,
+                    cfg.isotropic)
+
+        with span("probe", device=self.device):
+            need = [self._demand(gmap, self.mcfg, R, t)[0] for R, t in poses]
+            need.append(need[0] if caps(self.tcfg) == caps(self.mcfg)
+                        else self._demand(gmap, self.tcfg, *poses[0])[0])
+            with host_read():
+                need = torch.stack(need).tolist()
+            for name, padded in (("mcfg", max(need[:-1])), ("tcfg", need[-1])):
+                self._raise_capacity(name, self._rows_for(getattr(self, name), padded,
+                                                          gmap.capacity),
+                                     f"demand probe ({padded} padded rows)")
+        return self.mcfg
+
+    def _reprobe_window(self, state: MapperState, n_views: int):
+        """_reprobe of state's map at its window's n_views keyframes (slots
+        0.., newest first)."""
+        f = state.window.frames
+        return self._reprobe(state.gmap, [(f.R[i], f.t[i]) for i in range(n_views)])
 
     def _required_rows(self, cfg, frame: Frame) -> int | None:
         """The capacity the current map needs at this frame's pose (1.25x
         the padded demand, SLAB-rounded, at most the safe auto), or None
         when cfg.entry_capacity already holds it."""
         padded, _ = self._entry_demand(cfg, frame)
-        rows = -(-(padded * 5 // 4) // SLAB) * SLAB
-        if rows <= cfg.entry_capacity:
-            return None
-        safe = auto_entry_capacity(self.state.gmap.capacity, cfg.max_dup,
-                                   self._num_tiles(cfg), cfg.tile_capacity)
-        rows = min(rows, safe)
+        rows = self._rows_for(cfg, padded, self.state.gmap.capacity)
         return rows if rows > cfg.entry_capacity else None
 
     def _reprobe_tracking(self, frame: Frame):
         """Every REPROBE_EVERY tracked frames: raise the tracking capacity at
-        once if the grown map's demand no longer fits."""
+        once if the camera's motion since the last event's probe needs
+        more (a backstop)."""
         self._probe_counter += 1
         if self.tcfg.entry_capacity is None or self._probe_counter % self.REPROBE_EVERY:
             return
         rows = self._required_rows(self.tcfg, frame)
         if rows is not None:
-            Log(f"demand re-probe: tracking entry_capacity "
-                f"{self.tcfg.entry_capacity} -> {rows}", tag="System")
-            self.tcfg = dataclasses.replace(self.tcfg, entry_capacity=rows)
-
-    def _reprobe_mapping(self, frame: Frame):
-        """The mapper's counterpart, every 8 keyframes."""
-        self._kf_probe_counter += 1
-        if self.mcfg.entry_capacity is None or self._kf_probe_counter % 8:
-            return
-        rows = self._required_rows(self.mcfg, frame)
-        if rows is not None:
-            Log(f"demand re-probe: mapping entry_capacity "
-                f"{self.mcfg.entry_capacity} -> {rows}", tag="System")
-            self.mcfg = dataclasses.replace(self.mcfg, entry_capacity=rows)
+            self._raise_capacity("tcfg", rows, "demand re-probe")
 
     def _bump_entry_capacity(self, overflow: int):
         """Overflow backstop: raise the tracking slab capacity 1.5x (at most
@@ -426,13 +474,9 @@ class SLAM:
             return
         safe = auto_entry_capacity(self.state.gmap.capacity, self.tcfg.max_dup,
                                    self._num_tiles(self.tcfg), self.tcfg.tile_capacity)
-        new = min(-(-(cap * 3 // 2) // SLAB) * SLAB, safe)
-        if new <= cap:
-            return
-        self._cap_bumps += 1
-        self.tcfg = dataclasses.replace(self.tcfg, entry_capacity=new)
-        Log(f"binning overflow {overflow}: tracking entry_capacity {cap} -> {new}",
-            tag="System")
+        if self._raise_capacity("tcfg", min(-(-(cap * 3 // 2) // SLAB) * SLAB, safe),
+                                f"binning overflow {overflow}"):
+            self._cap_bumps += 1
 
     def _maybe_grow(self):
         st = self.state
@@ -457,9 +501,13 @@ class SLAM:
         with host_read():
             n_added = int(n_added)
         Log(f"Map init: {n_added} Gaussians", tag="Mapper")
-        self._derive_entry_capacities(frame)
-        self.state, vis = run_initialize_map(self.state, self.intr, self.mcfg,
-                                             mesh=self.mesh)
+        self._derive_entry_capacities()
+
+        def reprobe(st):
+            return self._reprobe_window(st, 1)
+
+        self.state, vis = run_initialize_map(self.state, self.intr, reprobe(self.state),
+                                             mesh=self.mesh, reprobe=reprobe)
         self.frames[0] = frame
         self.kf_list = [0]
         self._window_slots = [0]
@@ -521,8 +569,9 @@ class SLAM:
         optimise the window, prune. `fetch_frame(i) -> Frame` is read only
         when the window slots are unknown. -> (window_host_pack, vis)."""
         self._maybe_grow()  # before seeding, so no candidates are dropped
-        self._reprobe_mapping(frame)
         with span("kf.extend", frame=idx, device=self.device):
+            # The extend renders the map at the new pose: probe it there.
+            self._reprobe(self.state.gmap, [(frame.R, frame.t)])
             self.state, (_, n_dropped) = extend_event(self.state, frame, idx, self.intr,
                                                       self.mcfg, init=False)
             # Read at the end of the run (metrics["seed_drops"]), not here:
@@ -551,10 +600,13 @@ class SLAM:
             self._window_slots = list(kf_list)
 
         with span("kf.optimize", frame=idx, device=self.device):
-            self.state, vis = run_optimize_map(self.state, self.intr, self.mcfg,
-                                               self.mcfg.iters_per_kf,
+            def reprobe(st):
+                return self._reprobe_window(st, len(kf_list))
+
+            cfg = reprobe(self.state)       # the extend grew the map
+            self.state, vis = run_optimize_map(self.state, self.intr, cfg, cfg.iters_per_kf,
                                                defer_overflow_read=self._defer_overflow_read,
-                                               mesh=self.mesh)
+                                               mesh=self.mesh, reprobe=reprobe)
         if len(kf_list) == self.kcfg.window_size:
             # The first full window may prune from any keyframe; later ones
             # only Gaussians of the three newest keyframes.

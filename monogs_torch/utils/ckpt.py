@@ -104,7 +104,7 @@ def save_checkpoint(path: str, slam) -> None:
         "exposures": {str(k): [float(a), float(b)] for k, (a, b) in slam.exposures.items()},
         "vis_keys": [int(k) for k in slam.vis_dict],
         "entry_capacity": [slam.tcfg.entry_capacity, slam.mcfg.entry_capacity],
-        "counters": [slam._cap_bumps, slam._probe_counter, slam._kf_probe_counter],
+        "counters": [slam._cap_bumps, slam._probe_counter],
     }
     vis = {str(k): v.cpu().numpy() for k, v in slam.vis_dict.items()}
 
@@ -166,7 +166,7 @@ def load_checkpoint(path: str, slam) -> None:
     tcap, mcap = host["entry_capacity"]
     slam.tcfg = dataclasses.replace(slam.tcfg, entry_capacity=tcap)
     slam.mcfg = dataclasses.replace(slam.mcfg, entry_capacity=mcap)
-    slam._cap_bumps, slam._probe_counter, slam._kf_probe_counter = host["counters"]
+    slam._cap_bumps, slam._probe_counter = host["counters"][:2]
     with np.load(os.path.join(path, "visibility.npz")) as vis:
         slam.vis_dict = {int(k): torch.as_tensor(vis[k], device=dev) for k in vis.files}
     # The window is in keyframe-list slot order (save_checkpoint checks

@@ -76,6 +76,6 @@ def slam_from_numpy(src, slam, device="cuda"):
     slam._window_slots = (None if src._window_slots is None
                           else list(src._window_slots))
     for name in ("is_window_full", "first_time_pruned", "median_depth", "_cap_bumps",
-                 "_probe_counter", "_kf_probe_counter"):
+                 "_probe_counter"):
         setattr(slam, name, getattr(src, name))
     return slam

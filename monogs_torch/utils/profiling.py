@@ -18,6 +18,13 @@ only the spans the device has not reached.
 time the host was blocked in it against the innermost open span, and
 under the name `host_read`.
 
+`count(name, value, at=None)` adds to a counter at a span's path
+(`<path>/<name>`; the innermost open span's, or `at`'s): a number on the
+host, a device tensor on its device (one in-place add, no read). Every
+tile binning counts its live entries (`slab_live`) and its slab rows
+(`slab_rows`) at its `bin` span's path, after the span has closed, and the
+system counts each raise of a slab capacity (`capacity_raise`).
+
 While a torch profiler records, every span and host read also opens
 `torch.profiler.record_function` (the frame id as its argument), so the
 spans lie on the profiler's timeline over the kernels they launched, and
@@ -28,7 +35,9 @@ check and nothing else.
 waits for the spans the device has not reached yet and gives, per name,
 `n`, `total_s`, `mean_ms`, `host_s`, `self_s` (total less the child spans
 it covers), `reads`, `read_s` (its host reads and their blocked time), and
-`paths`, the same totals by path.
+`paths`, the same totals by path; and under the one key "counters", per
+counter `n` (the adds), `value` and `paths`, the counters on a device read
+back in one read (the key is absent while nothing was counted).
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ _lock = threading.Lock()
 _local = threading.local()
 _pending: collections.deque = collections.deque()   # closed, not yet folded
 _totals: dict[str, dict[str, list]] = {}           # name -> path -> _FIELDS
+_counts: dict[str, dict[str, list]] = {}           # name -> path -> [n, host, device]
 _NULL = contextlib.nullcontext()
 
 
@@ -192,9 +202,42 @@ class host_read:
         return False
 
 
+def count(name: str, value=1, at: span | None = None):
+    """Add `value` (a number, or a device scalar summed where it lies) to
+    the counter `name` at the path of the span `at` (closed or open), or
+    of the innermost open span."""
+    if at is None:
+        stack = _stack()
+        at = stack[-1] if stack else None
+    path = f"{at.path}/{name}" if at is not None else name
+    with _lock:
+        row = _counts.setdefault(name, {}).get(path)
+        if row is None:
+            row = _counts[name][path] = [0, 0, None]
+        row[0] += 1
+        if not torch.is_tensor(value):
+            row[1] += value
+        elif row[2] is None:
+            row[2] = value.to(torch.int64, copy=True)
+        else:
+            row[2].add_(value)
+
+
+def _count_values() -> dict:
+    """{(name, path): value} of every counter, the device sums in one read.
+    Under _lock."""
+    rows = [(name, path, row) for name, paths in _counts.items()
+            for path, row in paths.items()]
+    dev = [row[2] for _, _, row in rows if row[2] is not None]
+    got = iter(torch.stack([t.to(dev[0].device) for t in dev]).tolist() if dev else ())
+    return {(name, path): row[1] + (next(got) if row[2] is not None else 0)
+            for name, path, row in rows}
+
+
 def summary() -> dict:
-    """Totals by name (and by path under "paths") of every span closed since
-    the last reset(); waits for the device to reach the spans' ends."""
+    """Totals by name (and by path under "paths") of every span closed, and
+    under "counters" every count made, since the last reset(); waits for
+    the device to reach the spans' ends and the counts."""
     with _lock:
         _fold(wait=True)
         out = {}
@@ -204,11 +247,19 @@ def summary() -> dict:
             d["mean_ms"] = 1e3 * d["total_s"] / max(d["n"], 1)
             d["paths"] = {p: dict(zip(_FIELDS, row)) for p, row in paths.items()}
             out[name] = d
+        values = _count_values()
+        for name, paths in _counts.items():
+            by_path = {p: {"n": row[0], "value": values[(name, p)]} for p, row in paths.items()}
+            out.setdefault("counters", {})[name] = {
+                "n": sum(r["n"] for r in by_path.values()),
+                "value": sum(r["value"] for r in by_path.values()), "paths": by_path}
         return out
 
 
 def reset():
-    """Forget every total and every closed span not yet folded."""
+    """Forget every total, every count and every closed span not yet
+    folded."""
     with _lock:
         _pending.clear()
         _totals.clear()
+        _counts.clear()

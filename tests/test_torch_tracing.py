@@ -1,6 +1,6 @@
-"""monogs_torch's spans and host-read counts (utils/profiling.py) on the CPU,
-and the benchmark's four readers of them on hand-built summaries; one
-`gpu` case holds a span on the card to its stream time without a wait.
+"""monogs_torch's spans, host-read counts and counters (utils/profiling.py)
+on the CPU, and the benchmark's readers of them on hand-built summaries;
+one `gpu` case holds a span on the card to its stream time without a wait.
 
 No JAX here: the card case runs in this file as it is."""
 
@@ -11,8 +11,17 @@ import time
 import pytest
 import torch
 
+from monogs_torch.ops import binning
 from monogs_torch.utils import profiling as P
-from slambench.metrics import kf_bin_ms, track_bin_ms, track_host_ms, track_reads
+from slambench.metrics import (
+    kf_bin_ms,
+    map_slab_fill,
+    probe_ms,
+    track_bin_ms,
+    track_host_ms,
+    track_reads,
+    track_slab_fill,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -229,6 +238,102 @@ def test_readers_on_a_hand_built_summary(reader, expected):
     # A program whose summary has no paths, host times or reads: nothing.
     old = {k: {f: v[f] for f in ("n", "total_s", "mean_ms")} for k, v in ctx["sections"].items()}
     assert reader.read(dict(ctx, sections=old)) is None
+    assert reader.read(dict(ctx, sections={})) is None
+
+
+def test_counts_sum_by_path_on_the_host_and_on_the_device():
+    live = torch.tensor(5)
+    with P.span("frame"):
+        with P.span("bin"):
+            P.count("slab_live", live)
+            P.count("slab_rows", 512)
+        with P.span("kf.extend"):
+            with P.span("bin") as closed:
+                P.count("slab_live", torch.tensor(7, dtype=torch.int32))
+                P.count("slab_rows", 1024)
+            P.count("slab_live", torch.tensor(1), at=closed)   # at a closed span's path
+        P.count("capacity_raise")
+    s = P.summary()
+    assert set(s) == {"frame", "bin", "kf.extend", "counters"}
+    c = s["counters"]
+    assert c["slab_live"]["paths"] == {"frame/bin/slab_live": {"n": 1, "value": 5},
+                                       "frame/kf.extend/bin/slab_live": {"n": 2, "value": 8}}
+    assert (c["slab_live"]["n"], c["slab_live"]["value"]) == (3, 13)
+    assert c["slab_rows"]["value"] == 1536
+    assert c["capacity_raise"] == {"n": 1, "value": 1,
+                                   "paths": {"frame/capacity_raise": {"n": 1, "value": 1}}}
+    assert int(live) == 5                       # the sum is kept apart from the caller's
+    assert P.summary()["counters"]["slab_live"]["value"] == 13
+    P.reset()
+    assert P.summary() == {}
+
+
+def test_tile_bin_counts_its_live_entries_and_slab_rows_in_its_span():
+    """At the `bin` span's path, but after the span closed: the span times
+    the binning alone."""
+    g = torch.Generator().manual_seed(0)
+    n = 64
+    u, v = 64 * torch.rand(n, generator=g), 48 * torch.rand(n, generator=g)
+    radius = 2 + 6 * torch.rand(n, generator=g)
+    depth = 1 + torch.rand(n, generator=g)
+    opened = []
+    orig_count = P.count
+
+    def spy(name, value=1, at=None):
+        opened.append([sp.name for sp in P._stack()])
+        return orig_count(name, value, at)
+
+    with P.span("frame"):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(binning, "count", spy)
+            bins = binning.tile_bin(None, radius, depth, torch.ones(n, dtype=torch.bool), 64,
+                                    48, tile_size=16, tile_capacity=128, max_dup=12,
+                                    entry_capacity=12 * binning.SLAB, uv=(u, v))
+    assert opened == [["frame"], ["frame"]]     # the bin span had closed
+    s = P.summary()["counters"]
+    assert s["slab_live"]["paths"] == {
+        "frame/bin/slab_live": {"n": 1, "value": int(bins.counts.sum())}}
+    assert s["slab_rows"]["paths"] == {"frame/bin/slab_rows": {"n": 1, "value": 12 * binning.SLAB}}
+    assert 0 < int(bins.counts.sum()) and int(bins.overflow) == 0
+
+
+def _counted_sections():
+    """A window of 4 tracked frames and 2 keyframe events: its probe spans
+    and its binnings' slab counts."""
+    def counter(paths):
+        return {"n": sum(p["n"] for p in paths.values()),
+                "value": sum(p["value"] for p in paths.values()), "paths": paths}
+
+    probe = {"frame/kf.optimize/probe": {"n": 4, "total_s": 0.2, "host_s": 0.2, "self_s": 0.2,
+                                         "reads": 4, "read_s": 0.0},
+             "frame/probe": {"n": 1, "total_s": 0.05, "host_s": 0.05, "self_s": 0.05,
+                             "reads": 1, "read_s": 0.0}}
+    live = counter({"frame/track.dispatch/bin/slab_live": {"n": 8, "value": 300},
+                    "frame/kf.extend/bin/slab_live": {"n": 2, "value": 100},
+                    "frame/kf.optimize/map.span/bin/slab_live": {"n": 4, "value": 500},
+                    "refine/bin/slab_live": {"n": 1, "value": 900}})
+    rows = counter({"frame/track.dispatch/bin/slab_rows": {"n": 8, "value": 3000},
+                    "frame/kf.extend/bin/slab_rows": {"n": 2, "value": 1000},
+                    "frame/kf.optimize/map.span/bin/slab_rows": {"n": 4, "value": 2000},
+                    "refine/bin/slab_rows": {"n": 1, "value": 1000}})
+    return {
+        "track.dispatch": {"n": 4, "total_s": 2.0, "mean_ms": 500.0, "paths": {}},
+        "probe": {"n": 5, "total_s": 0.25, "mean_ms": 50.0, "paths": probe},
+        "counters": {"slab_live": live, "slab_rows": rows},
+    }
+
+
+@pytest.mark.parametrize("reader,expected", [
+    (probe_ms, 1e3 * 0.25 / 2),                 # every probe span, a keyframe event
+    (map_slab_fill, 100.0 * 600 / 3000),        # the slabs binned inside a kf.* span
+    (track_slab_fill, 100.0 * 300 / 3000),      # the slabs binned inside track.dispatch
+])
+def test_probe_and_slab_fill_readers_on_a_hand_built_summary(reader, expected):
+    ctx = {"sections": _counted_sections(), "window": {"keyframes": [5, 10]},
+           "track_iters": [30, 20, 25, 25]}
+    assert reader.read(ctx) == pytest.approx(expected)
+    # A program without probe spans and slab counts: nothing.
+    assert reader.read(dict(ctx, sections=_sections())) is None
     assert reader.read(dict(ctx, sections={})) is None
 
 
